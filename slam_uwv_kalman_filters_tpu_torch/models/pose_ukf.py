@@ -1,0 +1,725 @@
+"""PoseUKF — model-aided inertial localization, the counterpart of
+``slam_uwv_kalman_filters_tpu/models/pose_ukf.py`` (reference ``PoseUKF``,
+Arnold & Medagoda, ICRA 2018): a 53-DOF UKF over position, orientation,
+velocity, acceleration, IMU biases, gravity, the (x, y, ψ) inertia and
+damping sub-model, water currents, ADCP bias and water density.
+
+This slice holds the constructors, the process model and process-noise
+assembly, prediction, and the mission-tick measurement updates (velocity,
+acceleration, z and xy position, pressure, water velocity, body efforts in
+full mode), each in solo and ``_bank`` form.
+
+* Solo functions take one filter (leaves without a bank axis) and run the
+  generic path (``ops/ukf.py``) on a bank of one.
+* ``*_bank`` functions take a bank (leading axis on every state leaf) and a
+  shared parameter set. A CUDA bank goes through the fused kernels
+  (``models/pose_fused.py``, ``models/pose_update_fused.py``); a CPU bank
+  takes the generic path; any other device raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import dynamics as dyn
+from ..ops import geodesy as geo
+from ..ops import manifolds as mf
+from ..ops import ukf
+from ..parallel.bank import tree_map
+from ..utils.config import PoseUKFConfig
+
+__all__ = [
+    "PoseState",
+    "POSE_MANIFOLD",
+    "PoseUKFParams",
+    "PoseUKFState",
+    "initial_state_from_config",
+    "initial_cov_from_config",
+    "params_from_config",
+    "process_noise_from_config",
+    "init_from_pose",
+    "init_from_state",
+    "assemble_process_noise",
+    "predict",
+    "predict_bank",
+    "update_bank",
+    "get_rotation_rate",
+    "get_rotation_rate_bank",
+    "integrate_rotation_rate",
+    "update_velocity",
+    "update_acceleration",
+    "update_z_position",
+    "update_xy_position",
+    "update_pressure",
+    "update_water_velocity",
+    "update_body_efforts",
+    "update_velocity_bank",
+    "update_acceleration_bank",
+    "update_z_position_bank",
+    "update_xy_position_bank",
+    "update_pressure_bank",
+    "update_water_velocity_bank",
+    "update_body_efforts_bank",
+]
+
+
+class PoseState(NamedTuple):
+    """Field-for-field mirror of ``MTK_BUILD_MANIFOLD(PoseState, ...)``."""
+
+    position: torch.Tensor  # (3,) IMU position in navigation (NWU) frame
+    orientation: torch.Tensor  # (4,) quaternion [w,x,y,z], IMU in nav frame
+    velocity: torch.Tensor  # (3,) IMU velocity in nav frame
+    acceleration: torch.Tensor  # (3,) IMU acceleration in nav frame
+    bias_gyro: torch.Tensor  # (3,)
+    bias_acc: torch.Tensor  # (3,)
+    gravity: torch.Tensor  # (1,) local gravity refinement
+    inertia: torch.Tensor  # (3,3) (x,y,ψ) inertia sub-model, 9 DOF col-major
+    lin_damping: torch.Tensor  # (3,3)
+    quad_damping: torch.Tensor  # (3,3)
+    water_velocity: torch.Tensor  # (2,) N/W current at the vehicle
+    water_velocity_below: torch.Tensor  # (2,) N/W current below the vehicle
+    bias_adcp: torch.Tensor  # (2,)
+    water_density: torch.Tensor  # (1,) [kg/m³]
+
+
+POSE_MANIFOLD = mf.make_manifold(
+    mf.Field("position", "vec", 3),
+    mf.Field("orientation", "so3"),
+    mf.Field("velocity", "vec", 3),
+    mf.Field("acceleration", "vec", 3),
+    mf.Field("bias_gyro", "vec", 3),
+    mf.Field("bias_acc", "vec", 3),
+    mf.Field("gravity", "vec", 1),
+    mf.Field("inertia", "mat33"),
+    mf.Field("lin_damping", "mat33"),
+    mf.Field("quad_damping", "mat33"),
+    mf.Field("water_velocity", "vec", 2),
+    mf.Field("water_velocity_below", "vec", 2),
+    mf.Field("bias_adcp", "vec", 2),
+    mf.Field("water_density", "vec", 1),
+)  # DOF = 53 → 107 sigma points
+if POSE_MANIFOLD.dof != 53:
+    raise AssertionError("PoseState must have 53 tangent DOF")
+
+
+class PoseUKFParams(NamedTuple):
+    """``PoseUKFParameter`` plus the Markov rest points, the vehicle model,
+    the projection anchor and the assembled process noise."""
+
+    imu_in_body: torch.Tensor  # (3,)
+    gyro_bias_offset: torch.Tensor  # (3,)
+    gyro_bias_tau: torch.Tensor  # ()
+    acc_bias_offset: torch.Tensor  # (3,)
+    acc_bias_tau: torch.Tensor  # ()
+    inertia_tau: torch.Tensor  # ()
+    lin_damping_tau: torch.Tensor  # ()
+    quad_damping_tau: torch.Tensor  # ()
+    water_velocity_tau: torch.Tensor  # ()
+    water_velocity_limits: torch.Tensor  # ()
+    water_velocity_scale: torch.Tensor  # ()
+    adcp_bias_tau: torch.Tensor  # ()
+    atmospheric_pressure: torch.Tensor  # ()
+    water_density_tau: torch.Tensor  # ()
+    inertia_offset: torch.Tensor  # (3,3) Markov rest point
+    lin_damping_offset: torch.Tensor  # (3,3)
+    quad_damping_offset: torch.Tensor  # (3,3)
+    water_density_offset: torch.Tensor  # ()
+    model: dyn.UWVParameters
+    projection: geo.GeographicProjection
+    process_noise: torch.Tensor  # (53,53)
+
+
+class PoseUKFState(NamedTuple):
+    mu: PoseState
+    cov: torch.Tensor  # (53,53)
+    rotation_rate: torch.Tensor  # (3,) cached IMU rates (process input)
+
+
+# ---------------------------------------------------------------------------
+# construction (PoseUKF ctors + setProcessNoiseFromConfig)
+# ---------------------------------------------------------------------------
+
+
+def _rot_or_eye(imu_in_body_rot, dtype, device):
+    if imu_in_body_rot is None:
+        return torch.eye(3, dtype=dtype, device=device)
+    return mf.quat_to_matrix(torch.as_tensor(imu_in_body_rot, dtype=dtype, device=device))
+
+
+def initial_state_from_config(
+    imu_in_nwu_pos,
+    imu_in_nwu_rot,
+    config: PoseUKFConfig,
+    model_parameters: dyn.UWVParameters,
+    imu_in_body_rot=None,
+    dtype=torch.float64,
+    device=None,
+) -> PoseState:
+    """Initial state of the first ctor: zero velocity/acceleration/currents,
+    biases rotated into the body frame, WGS-84 gravity, (x, y, ψ) blocks
+    extracted from the 6×6 model."""
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    rot_ib = _rot_or_eye(imu_in_body_rot, dtype, device)
+    gravity = geo.wgs84_gravity(
+        t(config.location.latitude), t(config.location.altitude)
+    )
+    z = lambda n: torch.zeros(n, dtype=dtype, device=device)
+    return PoseState(
+        position=t(imu_in_nwu_pos),
+        orientation=t(imu_in_nwu_rot),
+        velocity=z(3),
+        acceleration=z(3),
+        bias_gyro=rot_ib @ t(config.rotation_rate.bias_offset),
+        bias_acc=rot_ib @ t(config.acceleration.bias_offset),
+        gravity=gravity.reshape(1).to(dtype),
+        inertia=dyn.extract_xy_yaw(t(model_parameters.inertia_matrix)),
+        lin_damping=dyn.extract_xy_yaw(t(model_parameters.damping_linear)),
+        quad_damping=dyn.extract_xy_yaw(t(model_parameters.damping_quadratic)),
+        water_velocity=z(2),
+        water_velocity_below=z(2),
+        bias_adcp=z(2),
+        water_density=t([config.hydrostatics.water_density]),
+    )
+
+
+def _block_setter(c: torch.Tensor):
+    def set_block(name, value):
+        s = POSE_MANIFOLD.block(name)
+        c[s, s] = value
+
+    return set_block
+
+
+def initial_cov_from_config(
+    imu_in_nwu_pos_cov,
+    imu_in_nwu_rot_cov,
+    config: PoseUKFConfig,
+    imu_in_body_rot=None,
+    dtype=torch.float64,
+    device=None,
+) -> torch.Tensor:
+    """Blockwise initial covariance."""
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    eye = lambda n: torch.eye(n, dtype=dtype, device=device)
+    rot = _rot_or_eye(imu_in_body_rot, dtype, device)
+    c = torch.zeros((53, 53), dtype=dtype, device=device)
+    put = _block_setter(c)
+    put("position", t(imu_in_nwu_pos_cov))
+    put("orientation", t(imu_in_nwu_rot_cov))
+    put("velocity", eye(3))
+    put("acceleration", 10.0 * eye(3))
+    gi = t(config.rotation_rate.bias_instability)
+    ai = t(config.acceleration.bias_instability)
+    put("bias_gyro", rot @ torch.diag(gi**2) @ rot.T)
+    put("bias_acc", rot @ torch.diag(ai**2) @ rot.T)
+    put("gravity", t([[0.05**2]]))
+    mnp = config.model_noise_parameters
+    put("inertia", torch.diag(t(mnp.inertia_instability) ** 2))
+    put("lin_damping", torch.diag(t(mnp.lin_damping_instability) ** 2))
+    put("quad_damping", torch.diag(t(mnp.quad_damping_instability) ** 2))
+    wv = config.water_velocity
+    put("water_velocity", wv.limits**2 * eye(2))
+    put("water_velocity_below", wv.limits**2 * eye(2))
+    put("bias_adcp", wv.adcp_bias_limits**2 * eye(2))
+    put("water_density", t([[config.hydrostatics.water_density_limits**2]]))
+    return c
+
+
+def process_noise_from_config(
+    config: PoseUKFConfig, imu_delta_t: float, imu_in_body_rot=None, dtype=torch.float64, device=None
+) -> torch.Tensor:
+    """``setProcessNoiseFromConfig``: Euler integration error terms from
+    max_jerk, first-order-Markov 2/(τ·dt)·instability² for the rest."""
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    eye = lambda n: torch.eye(n, dtype=dtype, device=device)
+    rot = _rot_or_eye(imu_in_body_rot, dtype, device)
+    dt = imu_delta_t
+    jerk = t(config.max_jerk)
+    q = torch.zeros((53, 53), dtype=dtype, device=device)
+    put = _block_setter(q)
+    put("position", 1.5 * torch.diag(dt**4 * ((1.0 / 6.0) * 0.25 * jerk) ** 2))
+    put("velocity", 1.5 * torch.diag(dt**2 * (0.5 * 0.25 * jerk) ** 2))
+    put("acceleration", torch.diag((0.25 * jerk) ** 2))
+    rw = t(config.rotation_rate.randomwalk)
+    put("orientation", rot @ torch.diag(rw**2) @ rot.T)
+    gi = t(config.rotation_rate.bias_instability)
+    put("bias_gyro", rot @ ((2.0 / (config.rotation_rate.bias_tau * dt)) * torch.diag(gi**2)) @ rot.T)
+    ai = t(config.acceleration.bias_instability)
+    put("bias_acc", rot @ ((2.0 / (config.acceleration.bias_tau * dt)) * torch.diag(ai**2)) @ rot.T)
+    put("gravity", t([[1e-12]]))  # numeric stability only
+    mnp = config.model_noise_parameters
+    put("inertia", (2.0 / (mnp.inertia_tau * dt)) * torch.diag(t(mnp.inertia_instability) ** 2))
+    put(
+        "lin_damping",
+        (2.0 / (mnp.lin_damping_tau * dt)) * torch.diag(t(mnp.lin_damping_instability) ** 2),
+    )
+    put(
+        "quad_damping",
+        (2.0 / (mnp.quad_damping_tau * dt)) * torch.diag(t(mnp.quad_damping_instability) ** 2),
+    )
+    wv = config.water_velocity
+    put("water_velocity", (2.0 / (wv.tau * dt)) * wv.limits**2 * eye(2))
+    put("water_velocity_below", (2.0 / (wv.tau * dt)) * wv.limits**2 * eye(2))
+    put("bias_adcp", (2.0 / (wv.adcp_bias_tau * dt)) * wv.adcp_bias_limits**2 * eye(2))
+    hyd = config.hydrostatics
+    put("water_density", t([[(2.0 / (hyd.water_density_tau * dt)) * hyd.water_density_limits**2]]))
+    return q
+
+
+def params_from_config(
+    config: PoseUKFConfig,
+    model_parameters: dyn.UWVParameters,
+    initial_state: PoseState,
+    imu_delta_t: float = 0.01,
+    imu_in_body_rot=None,
+    imu_in_body_trans=None,
+    dtype=torch.float64,
+    device=None,
+) -> PoseUKFParams:
+    """``PoseUKFParameter`` population, Markov rest points, process noise."""
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    rot = _rot_or_eye(imu_in_body_rot, dtype, device)
+    trans = torch.zeros(3, dtype=dtype, device=device) if imu_in_body_trans is None else t(imu_in_body_trans)
+    wv, hyd, mnp = config.water_velocity, config.hydrostatics, config.model_noise_parameters
+    return PoseUKFParams(
+        imu_in_body=trans,
+        gyro_bias_offset=rot @ t(config.rotation_rate.bias_offset),
+        gyro_bias_tau=t(config.rotation_rate.bias_tau),
+        acc_bias_offset=rot @ t(config.acceleration.bias_offset),
+        acc_bias_tau=t(config.acceleration.bias_tau),
+        inertia_tau=t(mnp.inertia_tau),
+        lin_damping_tau=t(mnp.lin_damping_tau),
+        quad_damping_tau=t(mnp.quad_damping_tau),
+        water_velocity_tau=t(wv.tau),
+        water_velocity_limits=t(wv.limits),
+        water_velocity_scale=t(wv.scale),
+        adcp_bias_tau=t(wv.adcp_bias_tau),
+        atmospheric_pressure=t(hyd.atmospheric_pressure),
+        water_density_tau=t(hyd.water_density_tau),
+        inertia_offset=initial_state.inertia,
+        lin_damping_offset=initial_state.lin_damping,
+        quad_damping_offset=initial_state.quad_damping,
+        water_density_offset=initial_state.water_density[0],
+        model=tree_map(lambda a: t(a), model_parameters),
+        projection=geo.make_projection(
+            config.location.latitude, config.location.longitude, dtype, device
+        ),
+        process_noise=process_noise_from_config(config, imu_delta_t, imu_in_body_rot, dtype, device),
+    )
+
+
+def init_from_pose(
+    imu_in_nwu_pos,
+    imu_in_nwu_pos_cov,
+    imu_in_nwu_rot,
+    imu_in_nwu_rot_cov,
+    config: PoseUKFConfig,
+    model_parameters: dyn.UWVParameters,
+    imu_delta_t: float = 0.01,
+    imu_in_body_rot=None,
+    imu_in_body_trans=None,
+    dtype=torch.float64,
+    device=None,
+) -> tuple[PoseUKFState, PoseUKFParams]:
+    """First ctor plus ``setProcessNoiseFromConfig``."""
+    mu = initial_state_from_config(
+        imu_in_nwu_pos, imu_in_nwu_rot, config, model_parameters, imu_in_body_rot, dtype, device
+    )
+    cov = initial_cov_from_config(
+        imu_in_nwu_pos_cov, imu_in_nwu_rot_cov, config, imu_in_body_rot, dtype, device
+    )
+    params = params_from_config(
+        config, model_parameters, mu, imu_delta_t, imu_in_body_rot, imu_in_body_trans, dtype, device
+    )
+    rr = torch.zeros(3, dtype=dtype, device=device)
+    return PoseUKFState(mu=mu, cov=cov, rotation_rate=rr), params
+
+
+def init_from_state(initial_state: PoseState, state_cov, params: PoseUKFParams) -> PoseUKFState:
+    """Second ctor: resume from an explicit state and covariance."""
+    pos = initial_state.position
+    return PoseUKFState(
+        mu=initial_state,
+        cov=torch.as_tensor(state_cov, dtype=pos.dtype, device=pos.device),
+        rotation_rate=torch.zeros(3, dtype=pos.dtype, device=pos.device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# process model + prediction
+# ---------------------------------------------------------------------------
+
+
+def _process_model(chi: PoseState, rotation_rate, params: PoseUKFParams, dt) -> PoseState:
+    """``processModel`` on (2n+1, B)-batched sigma points; ``rotation_rate``
+    is (B, 3)."""
+    position = chi.position + dt * chi.velocity
+    lat, _ = geo.nav_to_world(params.projection, chi.position[..., 0], chi.position[..., 1])
+    earth_rot = geo.earth_rotation_nav(lat).to(chi.position.dtype)
+    angular_velocity = mf.quat_rotate(chi.orientation, rotation_rate - chi.bias_gyro) - earth_rot
+    orientation = mf.so3_boxplus(chi.orientation, angular_velocity, dt)
+    velocity = chi.velocity + dt * chi.acceleration
+
+    def decay(x, offset, tau):
+        return x + dt * (-1.0 / tau) * (x - offset)
+
+    return PoseState(
+        position=position,
+        orientation=orientation,
+        velocity=velocity,
+        acceleration=chi.acceleration,
+        bias_gyro=decay(chi.bias_gyro, params.gyro_bias_offset, params.gyro_bias_tau),
+        bias_acc=decay(chi.bias_acc, params.acc_bias_offset, params.acc_bias_tau),
+        gravity=chi.gravity,
+        inertia=decay(chi.inertia, params.inertia_offset, params.inertia_tau),
+        lin_damping=decay(chi.lin_damping, params.lin_damping_offset, params.lin_damping_tau),
+        quad_damping=decay(chi.quad_damping, params.quad_damping_offset, params.quad_damping_tau),
+        water_velocity=decay(chi.water_velocity, 0.0, params.water_velocity_tau),
+        water_velocity_below=decay(chi.water_velocity_below, 0.0, params.water_velocity_tau),
+        bias_adcp=decay(chi.bias_adcp, 0.0, params.adcp_bias_tau),
+        water_density=decay(chi.water_density, params.water_density_offset, params.water_density_tau),
+    )
+
+
+def assemble_process_noise(mu: PoseState, params: PoseUKFParams, dt) -> torch.Tensor:
+    """Per-step process noise of ``predictionStepImpl`` for a bank (B, 53, 53):
+    rotate the orientation block into the nav frame with the pre-predict
+    orientation, inflate the water-current noise with the z-weighted speed,
+    scale the whole Q by dt²."""
+    q0 = params.process_noise
+    nb = mu.position.shape[0]
+    so = POSE_MANIFOLD.block("orientation")
+    rot = mf.quat_to_matrix(mu.orientation)
+    q = q0.expand(nb, 53, 53).clone()
+    q[:, so, so] = rot @ q0[so, so] @ rot.transpose(-1, -2)
+    scale = torch.tensor([1.0, 1.0, 10.0], dtype=mu.velocity.dtype, device=mu.velocity.device)
+    sv = mu.velocity * scale
+    wv_extra = params.water_velocity_scale * (sv * sv).sum(-1) * dt
+    idx = torch.arange(46, 50, device=q.device)
+    q[:, idx, idx] = q[:, idx, idx] + wv_extra[:, None]
+    return (dt**2 * q).to(q0.dtype)
+
+
+def _check_shared(params: PoseUKFParams, what: str) -> None:
+    if params.process_noise.ndim != 2:
+        raise NotImplementedError(
+            f"{what}: banked (per-instance) parameter sets are not ported yet; "
+            "pass one shared PoseUKFParams"
+        )
+
+
+def _predict_generic(bstate: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFState:
+    q = assemble_process_noise(bstate.mu, params, dt)
+    mu, cov = ukf.predict(
+        POSE_MANIFOLD, bstate.mu, bstate.cov,
+        lambda chi: _process_model(chi, bstate.rotation_rate, params, dt), q,
+    )
+    return bstate._replace(mu=mu, cov=cov)
+
+
+def _solo(fn, state: PoseUKFState, *args):
+    """Run a bank function on one filter (a bank of one)."""
+    out = fn(tree_map(lambda a: a[None], state), *args)
+    if isinstance(out, PoseUKFState):
+        return tree_map(lambda a: a[0], out)
+    new_state, info = out
+    return tree_map(lambda a: a[0], new_state), tree_map(lambda a: a[0], info)
+
+
+def predict(state: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFState:
+    """``predictionStepImpl`` of one filter: assemble the state-dependent Q,
+    then unscented-predict through the process model (generic path)."""
+    return _solo(_predict_generic, state, params, dt)
+
+
+def _fused_route(bstate: PoseUKFState) -> bool:
+    """True for a CUDA bank (fused kernels), False for a CPU bank (generic
+    path); any other device raises."""
+    kind = bstate.cov.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no PoseUKF bank path for device {bstate.cov.device}")
+    return kind == "cuda"
+
+
+def predict_bank(bstate: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFState:
+    """Bank prediction: the fused predict kernel for a CUDA bank, the generic
+    batched path for a CPU bank (shared parameter set)."""
+    _check_shared(params, "predict_bank")
+    if _fused_route(bstate):
+        from . import pose_fused
+
+        return pose_fused.predict_fused_banked(bstate, params, dt)
+    return _predict_generic(bstate, params, dt)
+
+
+def update_bank(bstate, params, z, meas_cov, h, deps, gate_threshold=None):
+    """Bank update with a vector measurement model ``h`` (``deps`` names the
+    PoseState fields it reads) on the generic path — on a CUDA bank its
+    sigma deltas come from kernel K1. The fused generic-h tail is not ported
+    yet; the typed ``update_*_bank`` functions use the fused kernel."""
+    unknown = set(deps) - set(PoseState._fields)
+    if unknown:
+        raise ValueError(f"deps names unknown PoseState fields: {sorted(unknown)}")
+    _check_shared(params, "update_bank")
+    mu, cov, info = ukf.update(
+        POSE_MANIFOLD, bstate.mu, bstate.cov, torch.as_tensor(z, dtype=bstate.cov.dtype),
+        h, meas_cov, gate_threshold=gate_threshold,
+    )
+    return bstate._replace(mu=mu, cov=cov), info
+
+
+# ---------------------------------------------------------------------------
+# measurement models (broadcasting over (2n+1, B) sigma points)
+# ---------------------------------------------------------------------------
+
+_VELOCITY_DEPS = ("orientation", "velocity")
+_ACCELERATION_DEPS = ("orientation", "acceleration", "bias_acc", "gravity")
+_PRESSURE_DEPS = ("position", "orientation", "gravity", "water_density")
+_WATER_DEPS = ("orientation", "velocity", "water_velocity", "water_velocity_below", "bias_adcp")
+_EFFORTS_DEPS = (
+    "orientation", "velocity", "acceleration", "inertia", "lin_damping", "quad_damping",
+    "water_velocity",
+)
+
+
+def _h_velocity(s: PoseState) -> torch.Tensor:
+    """``measurementVelocity``: h = R⁻¹·v."""
+    return mf.quat_rotate_inv(s.orientation, s.velocity)
+
+
+def _h_acceleration(s: PoseState) -> torch.Tensor:
+    """``measurementAcceleration``: R⁻¹(a + [0,0,g]) + b_acc."""
+    zero = torch.zeros_like(s.gravity)
+    g_vec = torch.cat([zero, zero, s.gravity], dim=-1)
+    return mf.quat_rotate_inv(s.orientation, s.acceleration + g_vec) + s.bias_acc
+
+
+def _h_z_position(s: PoseState) -> torch.Tensor:
+    return s.position[..., 2:3]
+
+
+def _h_xy_position(s: PoseState) -> torch.Tensor:
+    return s.position[..., :2]
+
+
+def _h_pressure(atmospheric_pressure, lever: torch.Tensor):
+    """``measurementPressureSensor``: p = p_atm − z_sensor·g·ρ; a (B,)
+    ``atmospheric_pressure`` gives each instance its own."""
+
+    def h(s: PoseState) -> torch.Tensor:
+        sensor_nav = s.position + mf.quat_rotate(s.orientation, lever)
+        p = atmospheric_pressure - sensor_nav[..., 2] * s.gravity[..., 0] * s.water_density[..., 0]
+        return p[..., None]
+
+    return h
+
+
+def _h_water_velocity(cell_weighting):
+    """``measurementWaterCurrents``: cell-weighted blend of at-vehicle and
+    below-vehicle currents plus ADCP bias, IMU frame; a (B,) weighting gives
+    each instance its own."""
+    if not isinstance(cell_weighting, torch.Tensor):
+        cell_weighting = torch.tensor(float(cell_weighting), dtype=torch.float64)
+    cw = cell_weighting[..., None]
+
+    def h(s: PoseState) -> torch.Tensor:
+        zero = torch.zeros_like(s.water_velocity[..., :1])
+        wvb = torch.cat([s.water_velocity_below, zero], dim=-1)
+        wv = torch.cat([s.water_velocity, zero], dim=-1)
+        wvb_meas = mf.quat_rotate_inv(s.orientation, s.velocity - wvb)
+        wv_meas = mf.quat_rotate_inv(s.orientation, s.velocity - wv)
+        c = cw.to(s.velocity.dtype).to(s.velocity.device)
+        return c * wvb_meas[..., :2] + (1.0 - c) * wv_meas[..., :2] + s.bias_adcp
+
+    return h
+
+
+def _efforts_measurement(chi: PoseState, params: PoseUKFParams, rotation_rate_body) -> torch.Tensor:
+    """``measurementEfforts``: Fossen inverse dynamics with the per-sigma-point
+    (x, y, ψ) inertia/damping substituted into the 6×6 model;
+    ``rotation_rate_body`` is (3,) or (B, 3)."""
+    m = params.model._replace(
+        inertia_matrix=dyn.embed_xy_yaw(params.model.inertia_matrix, chi.inertia),
+        damping_linear=dyn.embed_xy_yaw(params.model.damping_linear, chi.lin_damping),
+        damping_quadratic=dyn.embed_xy_yaw(params.model.damping_quadratic, chi.quad_damping),
+    )
+    q = chi.orientation
+    zero = torch.zeros_like(chi.water_velocity[..., :1])
+    water_velocity = torch.cat([chi.water_velocity, zero], dim=-1)
+    rr = rotation_rate_body
+    velocity_body = mf.quat_rotate_inv(q, chi.velocity) - mf._cross(rr, params.imu_in_body)
+    velocity_body = velocity_body - mf.quat_rotate_inv(q, water_velocity)
+    vel6 = torch.cat([velocity_body, rr.expand_as(velocity_body)], dim=-1)
+    acceleration_body = mf.quat_rotate_inv(q, chi.acceleration) - mf._cross(
+        rr, mf._cross(rr, params.imu_in_body)
+    )
+    acc6 = torch.cat([acceleration_body, torch.zeros_like(acceleration_body)], dim=-1)
+    return dyn.calc_efforts(m, acc6, vel6, q)
+
+
+def get_rotation_rate(state: PoseUKFState, params: PoseUKFParams) -> torch.Tensor:
+    """``getRotationRate``: bias- and earth-rate-compensated body rate."""
+    mu = state.mu
+    lat, _ = geo.nav_to_world(params.projection, mu.position[..., 0], mu.position[..., 1])
+    earth_rot = geo.earth_rotation_nav(lat).to(mu.position.dtype)
+    return state.rotation_rate - mu.bias_gyro - mf.quat_rotate_inv(mu.orientation, earth_rot)
+
+
+def get_rotation_rate_bank(bstate: PoseUKFState, params: PoseUKFParams) -> torch.Tensor:
+    """(B, 3) per-instance :func:`get_rotation_rate`."""
+    return get_rotation_rate(bstate, params)
+
+
+def integrate_rotation_rate(state: PoseUKFState, z: torch.Tensor) -> PoseUKFState:
+    """Rotation rates are a process input, not an update."""
+    return state._replace(rotation_rate=z)
+
+
+# ---------------------------------------------------------------------------
+# bank updates: fused kernel on CUDA, generic path on CPU
+# ---------------------------------------------------------------------------
+
+
+def _fused_update(model, bstate, z, meas_cov, gate_threshold=None, **kw):
+    from . import pose_update_fused
+
+    return pose_update_fused.update_model_fused_banked(
+        model, bstate, z, meas_cov, gate_threshold, **kw
+    )
+
+
+def update_velocity_bank(bstate, params, z, meas_cov):
+    """DVL velocity, h = R⁻¹·v."""
+    if _fused_route(bstate):
+        return _fused_update("velocity", bstate, z, meas_cov)
+    return update_bank(bstate, params, z, meas_cov, _h_velocity, _VELOCITY_DEPS)
+
+
+def update_acceleration_bank(bstate, params, z, meas_cov):
+    """IMU specific force, h = R⁻¹(a + [0,0,g]) + b_acc."""
+    if _fused_route(bstate):
+        return _fused_update("acceleration", bstate, z, meas_cov)
+    return update_bank(bstate, params, z, meas_cov, _h_acceleration, _ACCELERATION_DEPS)
+
+
+def update_z_position_bank(bstate, params, z, meas_cov):
+    """Depth."""
+    if _fused_route(bstate):
+        return _fused_update("z_position", bstate, z, meas_cov)
+    return update_bank(bstate, params, z, meas_cov, _h_z_position, ("position",))
+
+
+def update_xy_position_bank(bstate, params, z, meas_cov, gate_threshold=None):
+    """XY position; ``gate_threshold=ukf.D2P95`` for GPS fixes."""
+    if _fused_route(bstate):
+        return _fused_update("xy_position", bstate, z, meas_cov, gate_threshold)
+    return update_bank(bstate, params, z, meas_cov, _h_xy_position, ("position",), gate_threshold)
+
+
+def update_pressure_bank(bstate, params, z, meas_cov, pressure_sensor_in_imu=None):
+    """Hydrostatic pressure, p = p_atm − z_sensor·g·ρ. A (B,)
+    ``params.atmospheric_pressure`` gives each instance its own (the fused
+    kernel's banked-aux form)."""
+    dtype, device = bstate.cov.dtype, bstate.cov.device
+    lever = (
+        torch.zeros(3, dtype=dtype, device=device)
+        if pressure_sensor_in_imu is None
+        else torch.as_tensor(pressure_sensor_in_imu, dtype=dtype, device=device)
+    )
+    p_atm = params.atmospheric_pressure.to(dtype)
+    if _fused_route(bstate):
+        if p_atm.ndim >= 1:
+            nb = bstate.cov.shape[0]
+            aux_bank = torch.cat([p_atm.reshape(-1, 1).expand(nb, 1), lever.expand(nb, 3)], dim=1)
+            return _fused_update("pressure", bstate, z, meas_cov, aux_bank=aux_bank)
+        return _fused_update("pressure", bstate, z, meas_cov, aux=(p_atm, *lever.unbind()))
+    return update_bank(bstate, params, z, meas_cov, _h_pressure(p_atm, lever), _PRESSURE_DEPS)
+
+
+def update_water_velocity_bank(bstate, params, z, meas_cov, cell_weighting):
+    """ADCP water current, χ²-95 gated; ``cell_weighting`` is a shared
+    scalar or (B,) per instance."""
+    cw = torch.as_tensor(cell_weighting, dtype=bstate.cov.dtype, device=bstate.cov.device)
+    if _fused_route(bstate):
+        if cw.ndim == 1:
+            return _fused_update("water_velocity", bstate, z, meas_cov, ukf.D2P95, aux_bank=cw[:, None])
+        return _fused_update("water_velocity", bstate, z, meas_cov, ukf.D2P95, aux=(cw,))
+    return update_bank(
+        bstate, params, z, meas_cov, _h_water_velocity(cw), _WATER_DEPS, ukf.D2P95
+    )
+
+
+def update_body_efforts_bank(bstate, params, z, meas_cov, rotation_rate_body):
+    """Model-aided effort update (full mode). ``rotation_rate_body`` is the
+    compensated body rate, (3,) shared or (B, 3) per instance."""
+    rr = torch.as_tensor(rotation_rate_body, dtype=bstate.cov.dtype, device=bstate.cov.device)
+    if _fused_route(bstate):
+        from . import pose_update_fused
+
+        nb = bstate.cov.shape[0]
+        return _fused_update(
+            "body_efforts", bstate, z, meas_cov,
+            aux_bank=rr.expand(nb, 3),
+            mscal=pose_update_fused._efforts_model_scal(params, bstate.cov.dtype),
+        )
+    return update_bank(
+        bstate, params, z, meas_cov, lambda s: _efforts_measurement(s, params, rr), _EFFORTS_DEPS
+    )
+
+
+# ---------------------------------------------------------------------------
+# solo updates: one filter, generic path
+# ---------------------------------------------------------------------------
+
+
+def _solo_update(state, params, z, meas_cov, h, gate_threshold=None):
+    def fn(bstate):
+        mu, cov, info = ukf.update(
+            POSE_MANIFOLD, bstate.mu, bstate.cov, torch.as_tensor(z)[None], h, meas_cov,
+            gate_threshold=gate_threshold,
+        )
+        return bstate._replace(mu=mu, cov=cov), info
+
+    return _solo(fn, state)
+
+
+def update_velocity(state, params, z, meas_cov):
+    return _solo_update(state, params, z, meas_cov, _h_velocity)
+
+
+def update_acceleration(state, params, z, meas_cov):
+    return _solo_update(state, params, z, meas_cov, _h_acceleration)
+
+
+def update_z_position(state, params, z, meas_cov):
+    return _solo_update(state, params, z, meas_cov, _h_z_position)
+
+
+def update_xy_position(state, params, z, meas_cov, gate_threshold=None):
+    return _solo_update(state, params, z, meas_cov, _h_xy_position, gate_threshold)
+
+
+def update_pressure(state, params, z, meas_cov, pressure_sensor_in_imu=None):
+    dtype, device = state.cov.dtype, state.cov.device
+    lever = (
+        torch.zeros(3, dtype=dtype, device=device)
+        if pressure_sensor_in_imu is None
+        else torch.as_tensor(pressure_sensor_in_imu, dtype=dtype, device=device)
+    )
+    return _solo_update(state, params, z, meas_cov, _h_pressure(params.atmospheric_pressure, lever))
+
+
+def update_water_velocity(state, params, z, meas_cov, cell_weighting):
+    return _solo_update(
+        state, params, z, meas_cov, _h_water_velocity(cell_weighting), ukf.D2P95
+    )
+
+
+def update_body_efforts(state, params, z, meas_cov):
+    """Model-aided effort measurement, full mode."""
+    rr_body = get_rotation_rate(state, params)
+    return _solo_update(
+        state, params, z, meas_cov, lambda chi: _efforts_measurement(chi, params, rr_body)
+    )

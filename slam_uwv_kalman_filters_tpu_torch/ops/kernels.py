@@ -1,0 +1,89 @@
+"""Sigma-point deltas for the generic UKF — kernel K1 and its plain version.
+
+Counterpart of ``slam_uwv_kalman_filters_tpu/ops/kernels.py``: the fused
+equilibrated Cholesky → ±column sigma deltas (``_sigma_deltas_kernel`` and
+its core ``equilibrated_sigma_columns``). On a CUDA tensor
+:func:`sigma_deltas_banked` launches the hand-written kernel of
+``csrc/sigma_deltas.cu``; on a CPU tensor it runs :func:`sigma_deltas_plain`.
+
+The deltas are ukfom-ordered: row 0 zero, rows 2j+1 / 2j+2 the ±j-th column
+of L = D·chol(D⁻¹·A·D⁻¹), D = √max(diag A, tiny). The diagonal equilibration
+matters: the 53-DOF PoseUKF covariance mixes variances from ~1e-11 to ~1e1
+(condition ~1e12), beyond float32 without it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .linalg_small import UNROLL_LIMIT, cholesky_unrolled
+
+__all__ = [
+    "MAX_N",
+    "equilibrated_cholesky",
+    "sigma_deltas_banked",
+    "sigma_deltas_cuda",
+    "sigma_deltas_plain",
+]
+
+MAX_N = 64  # largest matrix the CUDA core takes (per-thread local arrays)
+
+
+def equilibrated_cholesky(cov: torch.Tensor):
+    """(L̃, d) with L̃ = chol(D⁻¹·cov·D⁻¹) and d = √max(diag cov, tiny), for
+    (..., n, n) SPD ``cov`` (lower triangle read). A failed factorization
+    gives NaN, as LAPACK-backed JAX does, instead of raising."""
+    tiny = torch.finfo(cov.dtype).tiny
+    d = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1), min=tiny))
+    corr = cov / (d[..., :, None] * d[..., None, :])
+    lt, info = torch.linalg.cholesky_ex(corr)
+    lt = torch.where((info == 0)[..., None, None], lt, torch.full_like(lt, float("nan")))
+    return lt, d
+
+
+def sigma_deltas_plain(cov: torch.Tensor) -> torch.Tensor:
+    """(N, n, n) SPD batch → (N, 2n+1, n) ukfom sigma deltas, in PyTorch.
+    n ≤ 8 factors unrolled without equilibration, as the JAX fallback does."""
+    nb, n = cov.shape[0], cov.shape[-1]
+    if n <= UNROLL_LIMIT:
+        L = cholesky_unrolled(cov)
+    else:
+        lt, d = equilibrated_cholesky(cov)
+        L = lt * d[:, :, None]
+    cols = L.transpose(-1, -2)  # row j = column j of L
+    pm = torch.stack([cols, -cols], dim=-2).reshape(nb, 2 * n, n)
+    return torch.cat([torch.zeros(nb, 1, n, dtype=cov.dtype, device=cov.device), pm], dim=-2)
+
+
+def sigma_deltas_cuda(cov: torch.Tensor) -> torch.Tensor:
+    """K1 on the card: (N, n, n) → (N, 2n+1, n). The kernel runs in the
+    bank-last (col, row, N) layout, one thread per instance; the layout
+    transposes are plain PyTorch copies around it."""
+    nb, n = cov.shape[0], cov.shape[-1]
+    if cov.ndim != 3 or cov.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
+        raise ValueError(f"sigma_deltas_cuda: need (N, n, n) with n <= {MAX_N}, got {tuple(cov.shape)}")
+    a_t = cov.permute(2, 1, 0).contiguous()
+    out_t = torch.empty((2 * n + 1, n, nb), dtype=cov.dtype, device=cov.device)
+    scratch = torch.empty((n, n, nb), dtype=cov.dtype, device=cov.device)
+    cuda_lib.check_lanes("sigma_deltas", cov.device, cov.dtype, a_t=a_t, out_t=out_t, scratch=scratch)
+    cuda_lib.KERNELS["sigma_deltas"].launch(
+        cov.dtype, a_t.data_ptr(), out_t.data_ptr(), scratch.data_ptr(), n, nb,
+        cuda_lib.stream_ptr(cov.device),
+    )
+    return out_t.permute(2, 0, 1)
+
+
+def sigma_deltas_banked(cov: torch.Tensor) -> torch.Tensor:
+    """(N, n, n) or (n, n) SPD → ukfom sigma deltas: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    single = cov.ndim == 2
+    if single:
+        cov = cov[None]
+    if cov.device.type == "cuda":
+        out = sigma_deltas_cuda(cov)
+    elif cov.device.type == "cpu":
+        out = sigma_deltas_plain(cov)
+    else:
+        raise ValueError(f"sigma_deltas_banked: no path for device {cov.device}")
+    return out[0] if single else out

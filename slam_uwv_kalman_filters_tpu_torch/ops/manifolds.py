@@ -1,0 +1,317 @@
+"""Manifold algebra for unscented Kalman filtering — the PyTorch counterpart of
+``slam_uwv_kalman_filters_tpu/ops/manifolds.py`` (the MTK manifold layer of
+the reference C++ library).
+
+Conventions are the JAX package's, pinned by the same oracle tests:
+
+* Quaternions are ``[w, x, y, z]`` in the last axis.
+* SO(3): ``q ⊞ δ = q ⊗ Exp(δ·scale)`` and ``a ⊟ b = Log(b⁻¹ ⊗ a)``.
+* Flat fields (``vec``): ``⊞`` is addition, ``⊟`` subtraction.
+* 3×3 matrix fields (``mat33``): 9 DOF, *column-major* vectorization.
+* Product manifolds concatenate per-field tangent vectors in declaration
+  order (the ``MTK_BUILD_MANIFOLD`` covariance layout).
+
+Where JAX wrote a per-instance function and ``vmap``-ed it, every function
+here broadcasts over leading batch axes: a quaternion is ``(..., 4)``, a
+tangent vector ``(..., dof)``. The S² fields wait for the BottomUKF port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+__all__ = [
+    "quat_identity",
+    "quat_normalize",
+    "quat_mul",
+    "quat_conj",
+    "quat_rotate",
+    "quat_rotate_inv",
+    "quat_exp",
+    "quat_log",
+    "quat_to_matrix",
+    "quat_from_matrix",
+    "quat_from_euler_zyx",
+    "so3_boxplus",
+    "so3_boxminus",
+    "Field",
+    "ProductManifold",
+    "make_manifold",
+]
+
+# ---------------------------------------------------------------------------
+# Quaternion / SO(3) algebra. Layout: q = [w, x, y, z] in the last axis.
+# ---------------------------------------------------------------------------
+
+
+def quat_identity(dtype=torch.float64, device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_mul(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q ⊗ p (both [w,x,y,z], broadcasting)."""
+    qw, qx, qy, qz = q.unbind(-1)
+    pw, px, py, pz = p.unbind(-1)
+    return torch.stack(
+        [
+            qw * pw - qx * px - qy * py - qz * pz,
+            qw * px + qx * pw + qy * pz - qz * py,
+            qw * py - qx * pz + qy * pw + qz * px,
+            qw * pz + qx * py - qy * px + qz * pw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate == inverse for unit quaternions."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def _cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    u, v = torch.broadcast_tensors(u, v)
+    return torch.linalg.cross(u, v, dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R(q)·v via the expanded Rodrigues form."""
+    w, u = q[..., :1], q[..., 1:4]
+    t = 2.0 * _cross(u, v)
+    return v + w * t + _cross(u, t)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R(q)⁻¹·v == R(q⁻¹)·v."""
+    return quat_rotate(quat_conj(q), v)
+
+
+def _sinc_half(theta2: torch.Tensor) -> torch.Tensor:
+    """sin(θ/2)/θ with a Taylor fallback for small θ (θ² given)."""
+    theta = torch.sqrt(theta2)
+    small = theta2 < 1e-12
+    taylor = 0.5 - theta2 / 48.0
+    safe_theta = torch.where(small, torch.ones_like(theta), theta)
+    exact = torch.sin(0.5 * safe_theta) / safe_theta
+    return torch.where(small, taylor, exact)
+
+
+def quat_exp(v: torch.Tensor) -> torch.Tensor:
+    """Rotation vector (..., 3) → unit quaternion (..., 4), MTK half-angle
+    convention, Taylor-expanded near |v| = 0."""
+    theta2 = (v * v).sum(-1)
+    w = torch.cos(0.5 * torch.sqrt(theta2))
+    xyz = _sinc_half(theta2)[..., None] * v
+    return torch.cat([w[..., None], xyz], dim=-1)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion → rotation vector, |result| ≤ π (hemisphere w ≥ 0)."""
+    q = torch.where(q[..., :1] < 0.0, -q, q)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    xyz = q[..., 1:4]
+    n2 = (xyz * xyz).sum(-1)
+    n = torch.sqrt(n2)
+    theta = 2.0 * torch.atan2(n, w)
+    small = n2 < 1e-24
+    safe_n = torch.where(small, torch.ones_like(n), n)
+    # θ/|xyz| → 2/w as |xyz| → 0
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=1e-6), theta / safe_n)
+    return scale[..., None] * xyz
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) → rotation matrix (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    rows = [
+        [1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)],
+        [2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)],
+        [2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def quat_from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) → unit quaternion (branch-free Shepperd:
+    all four candidates, the best-conditioned one selected)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-30))
+
+    s0 = safe_sqrt(1.0 + tr) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], -1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], -1)
+    s2 = safe_sqrt(1.0 - m00 + m11 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], -1)
+    s3 = safe_sqrt(1.0 - m00 - m11 + m22) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], -1)
+
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], -1)
+    idx = torch.argmax(scores, dim=-1)
+    cands = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return quat_normalize(q)
+
+
+def quat_from_euler_zyx(roll, pitch, yaw) -> torch.Tensor:
+    """(roll, pitch, yaw) → quaternion, R = Rz(yaw)·Ry(pitch)·Rx(roll)."""
+    hr, hp, hy = (0.5 * torch.as_tensor(a, dtype=torch.float64) for a in (roll, pitch, yaw))
+    cr, sr = torch.cos(hr), torch.sin(hr)
+    cp, sp = torch.cos(hp), torch.sin(hp)
+    cy, sy = torch.cos(hy), torch.sin(hy)
+    return torch.stack(
+        [
+            cy * cp * cr + sy * sp * sr,
+            cy * cp * sr - sy * sp * cr,
+            cy * sp * cr + sy * cp * sr,
+            sy * cp * cr - cy * sp * sr,
+        ],
+        dim=-1,
+    )
+
+
+def so3_boxplus(q: torch.Tensor, delta: torch.Tensor, scale=1.0) -> torch.Tensor:
+    """q ⊞ δ = q ⊗ Exp(δ·scale), re-normalized."""
+    return quat_normalize(quat_mul(q, quat_exp(delta * scale)))
+
+
+def so3_boxminus(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """a ⊟ b = Log(b⁻¹ ⊗ a); exact inverse of so3_boxplus."""
+    return quat_log(quat_mul(quat_conj(qb), qa))
+
+
+# ---------------------------------------------------------------------------
+# Product manifolds (the MTK_BUILD_MANIFOLD equivalent).
+# ---------------------------------------------------------------------------
+
+_KIND_VEC = "vec"
+_KIND_SO3 = "so3"
+_KIND_MAT33 = "mat33"
+
+_VALID_KINDS = (_KIND_VEC, _KIND_SO3, _KIND_MAT33)
+
+
+@dataclasses.dataclass(frozen=True)
+class Field:
+    """One component of a product manifold: ``vec`` (ℝᵈⁱᵐ, shape (dim,)),
+    ``so3`` (quaternion (4,), 3 DOF) or ``mat33`` ((3, 3), 9 DOF
+    column-major)."""
+
+    name: str
+    kind: str
+    dim: int = 0
+
+    def __post_init__(self):
+        if self.kind not in _VALID_KINDS:
+            raise ValueError(f"unknown manifold field kind: {self.kind!r}")
+        dof = {"so3": 3, "mat33": 9}.get(self.kind, self.dim)
+        if self.kind == _KIND_VEC and self.dim <= 0:
+            raise ValueError(f"vec field {self.name!r} needs dim > 0")
+        object.__setattr__(self, "dim", dof)
+
+
+def _field_boxplus(field: Field, value, delta, scale):
+    if field.kind == _KIND_VEC:
+        return value + scale * delta
+    if field.kind == _KIND_SO3:
+        return so3_boxplus(value, delta, scale)
+    # column-major vectorization: δ[3*c+r] lands on (r, c)
+    return value + scale * delta.reshape(*delta.shape[:-1], 3, 3).transpose(-1, -2)
+
+
+def _field_boxminus(field: Field, a, b):
+    if field.kind == _KIND_VEC:
+        return a - b
+    if field.kind == _KIND_SO3:
+        return so3_boxminus(a, b)
+    d = (a - b).transpose(-1, -2)
+    return d.reshape(*d.shape[:-2], 9)
+
+
+class ProductManifold:
+    """Product manifold over the fields of a NamedTuple state. Tangent
+    vectors are ``(..., dof)`` tensors with per-field slices in declaration
+    order, so the reference's ``MTK::subblock`` offsets map to slices of the
+    covariance."""
+
+    def __init__(self, fields: Sequence[Field]):
+        self.fields = tuple(fields)
+        self.slices: list[tuple[int, int]] = []
+        off = 0
+        for f in self.fields:
+            self.slices.append((off, f.dim))
+            off += f.dim
+        self.dof = off
+
+    def boxplus(self, x: Any, delta: torch.Tensor, scale=1.0) -> Any:
+        """x ⊞ (scale·δ), δ of shape (..., dof) broadcasting against x."""
+        updates = {}
+        for f, (start, dim) in zip(self.fields, self.slices):
+            updates[f.name] = _field_boxplus(
+                f, getattr(x, f.name), delta[..., start : start + dim], scale
+            )
+        return x._replace(**updates)
+
+    def boxminus(self, a: Any, b: Any) -> torch.Tensor:
+        """a ⊟ b → (..., dof) tangent vector at b."""
+        parts = [_field_boxminus(f, getattr(a, f.name), getattr(b, f.name)) for f in self.fields]
+        shape = torch.broadcast_shapes(*[p.shape[:-1] for p in parts])
+        return torch.cat([p.expand(*shape, p.shape[-1]) for p in parts], dim=-1)
+
+    def block(self, name: str) -> slice:
+        """Covariance slice of a field — the ``MTK::subblock`` equivalent."""
+        for f, (start, dim) in zip(self.fields, self.slices):
+            if f.name == name:
+                return slice(start, start + dim)
+        raise KeyError(name)
+
+    def mean(self, points: Any, *, max_iters: int = 64, tol: float = 1e-12) -> Any:
+        """Equal-weight manifold mean over the leading (sigma) axis of every
+        field: flat fields in closed form, SO(3) by ukfom's iterative mean
+        started from points[0]."""
+        updates = {}
+        for f in self.fields:
+            vals = getattr(points, f.name)
+            if f.kind == _KIND_SO3:
+                updates[f.name] = _iterative_mean(vals, max_iters=max_iters, tol=tol)
+            else:
+                updates[f.name] = vals.mean(dim=0)
+        return points._replace(**updates)
+
+
+def _iterative_mean(vals: torch.Tensor, *, max_iters: int, tol: float) -> torch.Tensor:
+    """Iterative Karcher mean of unit quaternions ``vals`` (K, ..., 4) over
+    the leading axis, started from vals[0] (ukfom convention).
+
+    Every instance of the batch runs its own tolerance loop, as the JAX
+    ``lax.while_loop`` does under ``vmap``: an instance whose last correction
+    fell to ``tol`` or below is frozen (masked), and the batch runs
+    ``max_iters`` iterations without ever asking the host whether all
+    instances have converged."""
+    m = vals[0]
+    norm = torch.full(m.shape[:-1], float("inf"), dtype=vals.dtype, device=vals.device)
+    for _ in range(max_iters):
+        active = norm > tol
+        delta = so3_boxminus(vals, m[None]).mean(dim=0)
+        m = torch.where(active[..., None], so3_boxplus(m, delta), m)
+        norm = torch.where(active, torch.linalg.vector_norm(delta, dim=-1), norm)
+    return m
+
+
+def make_manifold(*fields: Field) -> ProductManifold:
+    return ProductManifold(fields)

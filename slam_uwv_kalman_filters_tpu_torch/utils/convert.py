@@ -1,0 +1,55 @@
+"""numpy ↔ torch conversion of filter trees.
+
+:func:`from_numpy` turns a NamedTuple tree whose leaves are numpy arrays
+(for instance a JAX package ``PoseUKFState`` or ``PoseUKFParams`` after
+``jax.tree.map(np.asarray, …)``) into the port's NamedTuple of the same name,
+field by field; :func:`to_numpy` turns a port tree into numpy leaves. This is
+how the parity tests feed both packages identical state and parameters.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["from_numpy", "to_numpy"]
+
+
+def _port_types() -> dict:
+    from ..models import pose_fused, pose_ukf
+    from ..ops import dynamics, geodesy, ukf
+
+    types = (
+        pose_ukf.PoseState, pose_ukf.PoseUKFParams, pose_ukf.PoseUKFState,
+        dynamics.UWVParameters, geodesy.GeographicProjection, ukf.UpdateInfo,
+        pose_fused.LanesBankState,
+    )
+    return {t.__name__: t for t in types}
+
+
+def from_numpy(tree: Any, device=None, dtype=torch.float64) -> Any:
+    """Numpy-leaved NamedTuple tree → the port's NamedTuple of tensors on
+    ``device``; floating leaves are cast to ``dtype``, others keep theirs."""
+    if hasattr(tree, "_fields"):
+        cls = _port_types().get(type(tree).__name__)
+        if cls is None:
+            raise TypeError(f"no port counterpart for {type(tree).__name__}")
+        if cls._fields != tree._fields:
+            raise TypeError(f"{cls.__name__}: field names differ from the source tree")
+        return cls(*(from_numpy(leaf, device, dtype) for leaf in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(from_numpy(leaf, device, dtype) for leaf in tree)
+    arr = np.asarray(tree)
+    t = torch.as_tensor(arr.copy(), device=device)
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def to_numpy(tree: Any) -> Any:
+    """Port tree → the same NamedTuple types with numpy leaves."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(leaf) for leaf in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(leaf) for leaf in tree)
+    return tree.detach().cpu().numpy()
