@@ -4,7 +4,8 @@ A second package beside the JAX reference (``slam_uwv_kalman_filters_tpu``),
 with the same layout and module names so each counterpart is easy to find:
 
   ops/       manifold algebra, UKF core, vehicle dynamics, geodesy, kernels
-  models/    PoseUKF (generic per-instance path, lanes-layout fused path)
+  models/    PoseUKF (generic per-instance path, lanes-layout fused path),
+             the mission driver and the fleet Monte-Carlo harness
   parallel/  filter-bank helpers
   utils/     config schema, validation, numpy <-> torch conversion
   csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a)

@@ -1,5 +1,5 @@
 // Shared device code of the PoseUKF kernels: typed math, the quaternion
-// helpers and the equilibrated Cholesky core.
+// helpers, the equilibrated Cholesky core and the update tail of K3 and K4.
 //
 // Layout: every per-instance array is bank-last, (..., nb), one thread per
 // instance. A thread offsets its base pointers by its instance b, and element
@@ -175,5 +175,83 @@ struct NoEmit {
   template <typename T>
   __device__ void operator()(int, T) const {}
 };
+
+// ---- the update tail shared by K3 and K4 -----------------------------------
+// Replaces the TPU tail models/pose_update_fused.py::_update_tail_from_sc.
+//
+// From the innovation covariance S (M x M, registers), the cross-covariance C
+// (accessor C(i, k) -> T&, rows i < M of a bank-last (M, 53) scratch; C is
+// overwritten by W in place), the innovation nu and the prior mean m (storage
+// rows), per instance: the M x M Cholesky of S, W = C·L^-T by ascending
+// forward substitution, y = L^-1·nu, m2 = |y|², the gate as a select (a
+// threshold < 0 accepts any; a NaN S leaves the instance bit-identical to its
+// prior), the correction μ ⊞ W·y (flats plus the quaternion) and the
+// downdate cov − W·Wᵀ on the valid half (row >= col). `a` is the instance's
+// prior covariance (already offset by b); the outputs are offset here.
+constexpr int kMaxM = 6;
+
+template <typename T, typename CAcc>
+__device__ __forceinline__ void update_tail(int M, T (&Sm)[kMaxM][kMaxM], CAcc C, const T* nu,
+                                            const T* m, T thr, const T* a, T* cov_out, T* mu_out,
+                                            T* m2_out, T* acc_out, long long b, long long nb) {
+  constexpr int N = kPoseN, S = kPoseS;
+  T L[kMaxM][kMaxM], inv_diag[kMaxM], y[kMaxM];
+  for (int j = 0; j < M; ++j) {
+    T s = Sm[j][j];
+    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
+    L[j][j] = d_sqrt(s);
+    const T inv = T(1) / L[j][j];
+    for (int i = j + 1; i < M; ++i) {
+      T t = Sm[i][j];
+      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
+      L[i][j] = t * inv;
+    }
+  }
+  for (int i = 0; i < M; ++i) inv_diag[i] = T(1) / L[i][i];
+  for (int i = 0; i < M; ++i) {
+    for (int k = 0; k < N; ++k) {
+      T t = C(i, k);
+      for (int kk = 0; kk < i; ++kk) t -= L[i][kk] * C(kk, k);
+      C(i, k) = t * inv_diag[i];
+    }
+    T u = nu[i];
+    for (int kk = 0; kk < i; ++kk) u -= L[i][kk] * y[kk];
+    y[i] = u * inv_diag[i];
+  }
+  T m2 = T(0);
+  for (int i = 0; i < M; ++i) m2 += y[i] * y[i];
+  const bool accept = (m2 <= thr) || (thr < T(0));
+  m2_out[b] = m2;
+  acc_out[b] = accept ? T(1) : T(0);
+
+  T corr[N];
+  for (int k = 0; k < N; ++k) {
+    T t = T(0);
+    for (int i = 0; i < M; ++i) t += C(i, k) * y[i];
+    corr[k] = t;
+  }
+  const Quat<T> qn = qnorm(qmul(Quat<T>{m[3], m[4], m[5], m[6]}, qexp(corr[3], corr[4], corr[5])));
+  for (int s = 0; s < 3; ++s) mu_out[b + s * nb] = accept ? m[s] + corr[s] : m[s];
+  mu_out[b + 3 * nb] = accept ? qn.w : m[3];
+  mu_out[b + 4 * nb] = accept ? qn.x : m[4];
+  mu_out[b + 5 * nb] = accept ? qn.y : m[5];
+  mu_out[b + 6 * nb] = accept ? qn.z : m[6];
+  for (int s = 7; s < S; ++s) mu_out[b + s * nb] = accept ? m[s] + corr[s - 1] : m[s];
+
+  T* co = cov_out + b;
+  for (int cc = 0; cc < N; ++cc) {
+    for (int r = cc; r < N; ++r) {
+      const long long e = (static_cast<long long>(cc) * N + r) * nb;
+      const T prior = a[e];
+      if (accept) {
+        T t = T(0);
+        for (int i = 0; i < M; ++i) t += C(i, cc) * C(i, r);
+        co[e] = prior - t;
+      } else {
+        co[e] = prior;
+      }
+    }
+  }
+}
 
 }  // namespace slam

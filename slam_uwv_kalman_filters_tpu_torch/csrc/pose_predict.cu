@@ -1,7 +1,8 @@
-// K2 · fused 53-DOF PoseUKF prediction, shared-parameter mode.
+// K2 · fused 53-DOF PoseUKF prediction, shared-parameter and full (banked) mode.
 //
 // Replaces the TPU kernel models/pose_fused.py::_pose_predict_body (built by
-// _make_predict_kernel(False), launched by _pose_predict_lanes): in one launch
+// _make_predict_kernel(False) and _make_predict_kernel("full"), launched by
+// _pose_predict_lanes): in one launch
 //   1. the equilibrated Cholesky core (kept factor) -> ±sigma deltas,
 //   2. boxplus and the process model of every sigma point (reference
 //      PoseUKF.cpp:12-84: position/velocity Euler steps, orientation with
@@ -24,10 +25,19 @@
 // sets the time. This first version keeps the structure plain; a later one
 // tiles the points in shared memory and gives each instance a warp.
 //
-// Operands (bank-last): cov (53, 53, nb) half-valid in, mu (54, nb), rr (3, nb),
-// coeff/offs (54) shared Markov coefficient -dt/tau and rest point, q0m
-// (53, 53) shared dt²-scaled Q with its orientation block zeroed, scal (14):
-// [dt, lat0, 1/m_rad, EARTHW, wv_scale·dt³, dt²·Qrot row-major x9].
+// The mode is a template parameter, so the shared-mode code compiles as it did
+// before the full mode existed. Operands (bank-last): cov (53, 53, nb)
+// half-valid in, mu (54, nb), rr (3, nb), scal (14) [dt, lat0, 1/m_rad,
+// EARTHW, wv_scale·dt³, dt²·Qrot row-major x9], and
+//   shared mode: coeff/offs (54) Markov coefficient -dt/tau and rest point,
+//     q0m (53, 53) dt²-scaled Q with its orientation block zeroed;
+//   full mode (a banked Monte-Carlo parameter set): coeff/offs (54, nb), q0m
+//     (53, 53, nb) per lane, and aux (12, nb) [lat0; 1/m_rad; dt²·Qrot x9;
+//     wv_scale·dt³] in place of scal's entries 1, 2, 4 and 5..13 (note the
+//     other order: Qrot before the current inflation). The Markov decay of
+//     storage rows 10..53 then runs as its own pass, one row at a time, so
+//     each per-lane coefficient is read once; it adds ~1.5k coalesced reads
+//     per instance to the ~415k scratch accesses of the shared mode.
 // Outputs: cov_out (53, 53, nb) written only at row >= col, mu_out (54, nb).
 // Scratch: y (107, 54, nb), c (53, 53, nb).
 
@@ -37,13 +47,13 @@ namespace slam {
 
 constexpr int kMeanIters = 4;
 
-template <typename T>
+template <typename T, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 pose_predict_kernel(const T* __restrict__ cov, const T* __restrict__ mu, const T* __restrict__ rr,
                     const T* __restrict__ coeff, const T* __restrict__ offs,
                     const T* __restrict__ q0m, const T* __restrict__ scal,
-                    T* __restrict__ cov_out, T* __restrict__ mu_out, T* __restrict__ y_s,
-                    T* __restrict__ c_s, long long nb) {
+                    const T* __restrict__ aux, T* __restrict__ cov_out, T* __restrict__ mu_out,
+                    T* __restrict__ y_s, T* __restrict__ c_s, long long nb) {
   constexpr int N = kPoseN, S = kPoseS, K = kPoseSig;
   const long long b = instance_index();
   if (b >= nb) return;
@@ -52,7 +62,13 @@ pose_predict_kernel(const T* __restrict__ cov, const T* __restrict__ mu, const T
   T* y = y_s + b;
   auto Y = [&](int i, int s) -> T& { return y[(static_cast<long long>(i) * S + s) * nb]; };
 
-  const T dt = scal[0], lat0 = scal[1], mradinv = scal[2], earthw = scal[3], wv_scale = scal[4];
+  T dt, lat0, mradinv, earthw, wv_scale;
+  if constexpr (FULL) {
+    dt = scal[0]; earthw = scal[3];
+    lat0 = aux[b]; mradinv = aux[b + nb]; wv_scale = aux[b + 11 * nb];
+  } else {
+    dt = scal[0]; lat0 = scal[1]; mradinv = scal[2]; earthw = scal[3]; wv_scale = scal[4];
+  }
   T m[S];
   for (int s = 0; s < S; ++s) m[s] = mu[b + s * nb];
   const T rx = rr[b], ry = rr[b + nb], rz = rr[b + 2 * nb];
@@ -91,9 +107,25 @@ pose_predict_kernel(const T* __restrict__ cov, const T* __restrict__ mu, const T
     Y(i, 7) = vx + dt * ax;
     Y(i, 8) = vy + dt * ay;
     Y(i, 9) = vz + dt * az;
+    if constexpr (!FULL) {
+      for (int s = 10; s < S; ++s) {
+        const T xs = m[s] + dl(s - 1);
+        Y(i, s) = xs + coeff[s] * (xs - offs[s]);
+      }
+    }
+  }
+  if constexpr (FULL) {
+    // the Markov decays with per-lane coefficients, one storage row at a time
     for (int s = 10; s < S; ++s) {
-      const T xs = m[s] + dl(s - 1);
-      Y(i, s) = xs + coeff[s] * (xs - offs[s]);
+      const T cs = coeff[b + s * nb], os = offs[b + s * nb];
+      const long long col = static_cast<long long>(s - 1) * nb;  // tangent row s - 1
+      for (int i = 0; i < K; ++i) {
+        const int j = (i - 1) / 2;
+        const T sign = (i & 1) ? T(1) : T(-1);
+        const T dl = i == 0 ? T(0) : sign * (c[static_cast<long long>(j) * N * nb + col] * dvec[s - 1]);
+        const T xs = m[s] + dl;
+        Y(i, s) = xs + cs * (xs - os);
+      }
     }
   }
 
@@ -145,10 +177,15 @@ pose_predict_kernel(const T* __restrict__ cov, const T* __restrict__ mu, const T
       {1 - 2 * (y0 * y0 + z0 * z0), 2 * (x0 * y0 - w0 * z0), 2 * (x0 * z0 + w0 * y0)},
       {2 * (x0 * y0 + w0 * z0), 1 - 2 * (x0 * x0 + z0 * z0), 2 * (y0 * z0 - w0 * x0)},
       {2 * (x0 * z0 - w0 * y0), 2 * (y0 * z0 + w0 * x0), 1 - 2 * (x0 * x0 + y0 * y0)}};
+  // dt²·Qrot entry k (row-major)
+  auto qr = [&](int k) -> T {
+    if constexpr (FULL) return aux[b + (2 + k) * nb];
+    else return scal[5 + k];
+  };
   T Tm[3][3], B3[3][3];
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
-      Tm[i][j] = R[i][0] * scal[5 + j] + R[i][1] * scal[8 + j] + R[i][2] * scal[11 + j];
+      Tm[i][j] = R[i][0] * qr(j) + R[i][1] * qr(3 + j) + R[i][2] * qr(6 + j);
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j <= i; ++j)
       B3[i][j] = B3[j][i] = Tm[i][0] * R[j][0] + Tm[i][1] * R[j][1] + Tm[i][2] * R[j][2];
@@ -159,7 +196,10 @@ pose_predict_kernel(const T* __restrict__ cov, const T* __restrict__ mu, const T
     for (int r = cc; r < N; ++r) {
       T acc = T(0);
       for (int i = 0; i < K; ++i) acc += Y(i, cc) * Y(i, r);
-      T v = T(0.5) * acc + q0m[cc * N + r];
+      T q;
+      if constexpr (FULL) q = q0m[(static_cast<long long>(cc) * N + r) * nb + b];
+      else q = q0m[cc * N + r];
+      T v = T(0.5) * acc + q;
       if (cc >= 3 && r < 6) v += B3[r - 3][cc - 3];
       if (cc == r && cc >= 46 && cc < 50) v += wvq;
       co[(static_cast<long long>(cc) * N + r) * nb] = v;
@@ -167,27 +207,37 @@ pose_predict_kernel(const T* __restrict__ cov, const T* __restrict__ mu, const T
   }
 }
 
-template <typename T>
+template <typename T, bool FULL>
 int launch_pose_predict(const void* cov, const void* mu, const void* rr, const void* coeff,
-                        const void* offs, const void* q0m, const void* scal, void* cov_out,
-                        void* mu_out, void* y, void* c, long long nb, void* stream) {
-  pose_predict_kernel<T><<<blocks_for(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                        const void* offs, const void* q0m, const void* scal, const void* aux,
+                        void* cov_out, void* mu_out, void* y, void* c, long long nb, void* stream) {
+  if (FULL && aux == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  pose_predict_kernel<T, FULL><<<blocks_for(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(cov), static_cast<const T*>(mu), static_cast<const T*>(rr),
       static_cast<const T*>(coeff), static_cast<const T*>(offs), static_cast<const T*>(q0m),
-      static_cast<const T*>(scal), static_cast<T*>(cov_out), static_cast<T*>(mu_out),
-      static_cast<T*>(y), static_cast<T*>(c), nb);
+      static_cast<const T*>(scal), static_cast<const T*>(aux), static_cast<T*>(cov_out),
+      static_cast<T*>(mu_out), static_cast<T*>(y), static_cast<T*>(c), nb);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace slam
 
-#define SLAM_POSE_PREDICT_ENTRY(NAME, T)                                                        \
-  extern "C" int NAME(const void* cov, const void* mu, const void* rr, const void* coeff,        \
-                      const void* offs, const void* q0m, const void* scal, void* cov_out,        \
-                      void* mu_out, void* y, void* c, long long nb, void* stream) {              \
-    return slam::launch_pose_predict<T>(cov, mu, rr, coeff, offs, q0m, scal, cov_out, mu_out, y, \
-                                        c, nb, stream);                                          \
+#define SLAM_POSE_PREDICT_ENTRY(NAME, T)                                                          \
+  extern "C" int NAME(const void* cov, const void* mu, const void* rr, const void* coeff,          \
+                      const void* offs, const void* q0m, const void* scal, void* cov_out,          \
+                      void* mu_out, void* y, void* c, long long nb, void* stream) {                \
+    return slam::launch_pose_predict<T, false>(cov, mu, rr, coeff, offs, q0m, scal, nullptr,       \
+                                               cov_out, mu_out, y, c, nb, stream);                 \
+  }
+#define SLAM_POSE_PREDICT_FULL_ENTRY(NAME, T)                                                     \
+  extern "C" int NAME(const void* cov, const void* mu, const void* rr, const void* coeff,          \
+                      const void* offs, const void* q0m, const void* scal, const void* aux,        \
+                      void* cov_out, void* mu_out, void* y, void* c, long long nb, void* stream) {  \
+    return slam::launch_pose_predict<T, true>(cov, mu, rr, coeff, offs, q0m, scal, aux, cov_out,   \
+                                              mu_out, y, c, nb, stream);                           \
   }
 
 SLAM_POSE_PREDICT_ENTRY(slam_pose_predict_f32, float)
 SLAM_POSE_PREDICT_ENTRY(slam_pose_predict_f64, double)
+SLAM_POSE_PREDICT_FULL_ENTRY(slam_pose_predict_full_f32, float)
+SLAM_POSE_PREDICT_FULL_ENTRY(slam_pose_predict_full_f64, double)

@@ -15,7 +15,7 @@
 //      substitution, y = L_S^-1·ν, m2 = |y|², the gate as a select (a
 //      threshold < 0 accepts any; a NaN S leaves the instance bit-identical to
 //      its prior), the correction μ ⊞ W·y and the downdate cov − W·Wᵀ on the
-//      valid half (row >= col).
+//      valid half (row >= col) — the tail K4 shares (common.cuh::update_tail).
 // Model parameters: 5 aux values, shared (scal[1..5]) or per instance (aux,
 // (5, nb)); scal[0] is the gate threshold.
 //
@@ -34,8 +34,6 @@
 #include "common.cuh"
 
 namespace slam {
-
-constexpr int kMaxM = 6;
 
 enum Model : int {
   kVelocity = 0,
@@ -260,64 +258,8 @@ pose_update_model_kernel(int model, int banked_aux, const T* __restrict__ z,
       C(i, k) = T(0.5) * dvec[k] * acc;
     }
 
-  // 4. Cholesky of S, W = C·L^-T (ascending), y = L^-1·nu, gate, correction
-  T L[kMaxM][kMaxM], inv_diag[kMaxM], y[kMaxM];
-  for (int j = 0; j < M; ++j) {
-    T s = Sm[j][j];
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    L[j][j] = d_sqrt(s);
-    const T inv = T(1) / L[j][j];
-    for (int i = j + 1; i < M; ++i) {
-      T t = Sm[i][j];
-      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-      L[i][j] = t * inv;
-    }
-  }
-  for (int i = 0; i < M; ++i) inv_diag[i] = T(1) / L[i][i];
-  for (int i = 0; i < M; ++i) {
-    for (int k = 0; k < N; ++k) {
-      T t = C(i, k);
-      for (int kk = 0; kk < i; ++kk) t -= L[i][kk] * C(kk, k);
-      C(i, k) = t * inv_diag[i];
-    }
-    T u = nu[i];
-    for (int kk = 0; kk < i; ++kk) u -= L[i][kk] * y[kk];
-    y[i] = u * inv_diag[i];
-  }
-  T m2 = T(0);
-  for (int i = 0; i < M; ++i) m2 += y[i] * y[i];
-  const bool accept = (m2 <= thr) || (thr < T(0));
-  m2_out[b] = m2;
-  acc_out[b] = accept ? T(1) : T(0);
-
-  T corr[N];
-  for (int k = 0; k < N; ++k) {
-    T t = T(0);
-    for (int i = 0; i < M; ++i) t += C(i, k) * y[i];
-    corr[k] = t;
-  }
-  const Quat<T> qn = qnorm(qmul(Quat<T>{m[3], m[4], m[5], m[6]}, qexp(corr[3], corr[4], corr[5])));
-  for (int s = 0; s < 3; ++s) mu_out[b + s * nb] = accept ? m[s] + corr[s] : m[s];
-  mu_out[b + 3 * nb] = accept ? qn.w : m[3];
-  mu_out[b + 4 * nb] = accept ? qn.x : m[4];
-  mu_out[b + 5 * nb] = accept ? qn.y : m[5];
-  mu_out[b + 6 * nb] = accept ? qn.z : m[6];
-  for (int s = 7; s < S; ++s) mu_out[b + s * nb] = accept ? m[s] + corr[s - 1] : m[s];
-
-  T* co = cov_out + b;
-  for (int cc = 0; cc < N; ++cc) {
-    for (int r = cc; r < N; ++r) {
-      const long long e = (static_cast<long long>(cc) * N + r) * nb;
-      const T prior = a[e];
-      if (accept) {
-        T t = T(0);
-        for (int i = 0; i < M; ++i) t += C(i, cc) * C(i, r);
-        co[e] = prior - t;
-      } else {
-        co[e] = prior;
-      }
-    }
-  }
+  // 4. the shared tail: gain, gate, correction, downdate (common.cuh)
+  update_tail<T>(M, Sm, C, nu, m, thr, a, cov_out, mu_out, m2_out, acc_out, b, nb);
 }
 
 template <typename T>

@@ -1,13 +1,21 @@
 """Fused PoseUKF prediction — kernel K2 and its plain version.
 
-Counterpart of ``slam_uwv_kalman_filters_tpu/models/pose_fused.py`` in its
-shared-parameter mode: the whole 53-DOF prediction in one launch —
+Counterpart of ``slam_uwv_kalman_filters_tpu/models/pose_fused.py``: the
+whole 53-DOF prediction in one launch —
 equilibrated Cholesky → ±sigma deltas, boxplus, the process model (IMU
 mechanization with earth-rate compensation, first-order-Markov decays), the
 quaternion Karcher mean with a fixed :data:`MEAN_ITERS`, the deviations, and
 the half-triangle reconstruct ½ΣDDᵀ + Q with Q assembled per instance. On a
 CUDA tensor :func:`predict_lanes` launches ``csrc/pose_predict.cu``; on a CPU
 tensor it runs :func:`predict_lanes_plain`.
+
+Two parameter modes, as in JAX: *shared* (one parameter set; the Markov
+vectors, Q and the scalars are broadcast to every instance) and *full*
+(a banked Monte-Carlo set: per-lane Markov vectors, per-lane dt²-scaled Q and
+a (12, B) ``aux_t`` of per-lane anchor, orientation noise and current
+inflation, prepacked once by :func:`banked_predict_operands`). JAX's third,
+raw-banked mode adds Q outside the kernel; its only caller,
+``predict_fused_banked``, takes the full mode here.
 
 Lanes layout, as in the JAX package (the bank axis is minor, so neighbouring
 threads read neighbouring addresses): covariance ``cov_t`` (53, 53, B) in
@@ -59,7 +67,9 @@ __all__ = [
     "TANGENT_DIM",
     "NSIG",
     "MEAN_ITERS",
+    "BankedPredictOperands",
     "LanesBankState",
+    "banked_predict_operands",
     "to_lanes",
     "from_lanes",
     "set_rotation_rate_lanes",
@@ -85,6 +95,12 @@ _S_EARTHW = 3
 _S_WVQ = 4  # water_velocity_scale · dt³
 _S_QROT = 5  # 5:14 — dt²·(orientation block of Q), row-major
 _NSCAL = 14
+# rows of the full mode's (12, B) per-lane ``aux_t`` block
+_A_LAT0 = 0
+_A_MRADINV = 1
+_A_QROT = 2  # 2:11 — dt²·(orientation block of Q), row-major
+_A_WVQ = 11  # water_velocity_scale · dt³
+_NAUX = 12
 
 
 # ---------------------------------------------------------------------------
@@ -186,14 +202,23 @@ def _sigma_columns(cov_t: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal):
+def predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t=None):
     """The fused prediction in PyTorch, operand for operand what K2 computes:
-    cov_t (53, 53, B) half-valid, mu_t (54, B), rr_t (3, B), coeff/offs
-    (54, 1) Markov coefficient −dt/τ and rest point, q0m (53, 53, 1) the
-    dt²-scaled Q with its orientation block zeroed, scal (14, 1). Returns
-    (cov_out half-valid with zeros in the other half, mu_out)."""
+    cov_t (53, 53, B) half-valid, mu_t (54, B), rr_t (3, B), coeff/offs the
+    Markov coefficient −dt/τ and rest point, q0m the dt²-scaled Q with its
+    orientation block zeroed, scal (14, 1). Shared mode (``aux_t`` None):
+    coeff/offs (54, 1), q0m (53, 53, 1). Full mode: coeff/offs (54, B), q0m
+    (53, 53, B) and aux_t (12, B), which replaces scal's anchor, orientation
+    noise and current inflation. Returns (cov_out half-valid with zeros in
+    the other half, mu_out)."""
     n, nb = TANGENT_DIM, cov_t.shape[-1]
     s = lambda i: scal[i, 0]
+    if aux_t is None:
+        lat0, mradinv, wv_scale = s(_S_LAT0), s(_S_MRADINV), s(_S_WVQ)
+        qrot = lambda k: s(_S_QROT + k)
+    else:
+        lat0, mradinv, wv_scale = aux_t[_A_LAT0], aux_t[_A_MRADINV], aux_t[_A_WVQ]
+        qrot = lambda k: aux_t[_A_QROT + k]
     dt = s(_S_DT)
     lt, dvec = _sigma_columns(cov_t)
     cols = (lt * dvec[:, :, None]).transpose(1, 2)  # (B, j, k): column j of L
@@ -208,7 +233,7 @@ def predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal):
     qw, qx, qy, qz = _qnorm4(*_qmul(mu[3], mu[4], mu[5], mu[6], ew, ex, ey, ez))
     x_vel, x_acc = x_flat[:, 0:3], x_flat[:, 3:6]
     y_pos = x_pos + dt * x_vel
-    lat = s(_S_LAT0) + x_pos[:, 0] * s(_S_MRADINV)
+    lat = lat0 + x_pos[:, 0] * mradinv
     er_x = s(_S_EARTHW) * torch.cos(lat)
     er_z = s(_S_EARTHW) * torch.sin(lat)
     v = (rr_t[0] - x_flat[:, 6], rr_t[1] - x_flat[:, 7], rr_t[2] - x_flat[:, 8])
@@ -255,10 +280,10 @@ def predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal):
         (2 * (x0 * y0 + w0 * z0), 1 - 2 * (x0 * x0 + z0 * z0), 2 * (y0 * z0 - w0 * x0)),
         (2 * (x0 * z0 - w0 * y0), 2 * (y0 * z0 + w0 * x0), 1 - 2 * (x0 * x0 + y0 * y0)),
     )
-    Qr = [[s(_S_QROT + 3 * i + j) for j in range(3)] for i in range(3)]
+    Qr = [[qrot(3 * i + j) for j in range(3)] for i in range(3)]
     T = [[R[i][0] * Qr[0][j] + R[i][1] * Qr[1][j] + R[i][2] * Qr[2][j] for j in range(3)] for i in range(3)]
     v0, v1, v2 = mu[7], mu[8], mu[9]
-    wvq = s(_S_WVQ) * (v0 * v0 + v1 * v1 + 100.0 * v2 * v2)
+    wvq = wv_scale * (v0 * v0 + v1 * v1 + 100.0 * v2 * v2)
 
     # ½ΣDDᵀ (col c, row r) over all 107 points — the ± pairs are never folded
     acc = torch.einsum("icb,irb->crb", D, D)
@@ -273,16 +298,22 @@ def predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal):
     return _lower_half(cov + add).contiguous(), mu_out.contiguous()
 
 
-def predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal):
+def predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t=None):
     """K2 on the card, same operands and outputs as
-    :func:`predict_lanes_plain` (the other half of cov_out is left unwritten)."""
+    :func:`predict_lanes_plain` (the other half of cov_out is left
+    unwritten): kernel ``pose_predict`` in shared mode, ``pose_predict_full``
+    when ``aux_t`` is given."""
     n, nb = TANGENT_DIM, cov_t.shape[-1]
     dev, dtype = cov_t.device, cov_t.dtype
+    full = aux_t is not None
+    lanes = nb if full else 1
     shapes = {
-        "cov_t": (n, n, nb), "mu_t": (STORAGE_DIM, nb), "rr_t": (3, nb),
-        "coeff": (STORAGE_DIM, 1), "offs": (STORAGE_DIM, 1), "q0m": (n, n, 1), "scal": (_NSCAL, 1),
+        "cov_t": (n, n, nb), "mu_t": (STORAGE_DIM, nb), "rr_t": (3, nb), "coeff": (STORAGE_DIM, lanes),
+        "offs": (STORAGE_DIM, lanes), "q0m": (n, n, lanes), "scal": (_NSCAL, 1),
     }
     ops = dict(cov_t=cov_t, mu_t=mu_t, rr_t=rr_t, coeff=coeff, offs=offs, q0m=q0m, scal=scal)
+    if full:
+        shapes["aux_t"], ops["aux_t"] = (_NAUX, nb), aux_t
     for key, shape in shapes.items():
         if tuple(ops[key].shape) != shape:
             raise ValueError(f"pose_predict: {key} has shape {tuple(ops[key].shape)}, expected {shape}")
@@ -291,19 +322,21 @@ def predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal):
     y = torch.empty((NSIG, STORAGE_DIM, nb), dtype=dtype, device=dev)
     c = torch.empty((n, n, nb), dtype=dtype, device=dev)
     cuda_lib.check_lanes("pose_predict", dev, dtype, cov_out=cov_out, mu_out=mu_out, **ops)
-    cuda_lib.KERNELS["pose_predict"].launch(
-        dtype, *(t.data_ptr() for t in (cov_t, mu_t, rr_t, coeff, offs, q0m, scal)),
-        cov_out.data_ptr(), mu_out.data_ptr(), y.data_ptr(), c.data_ptr(), nb,
+    ptrs = [t.data_ptr() for t in (cov_t, mu_t, rr_t, coeff, offs, q0m, scal)]
+    if full:
+        ptrs.append(aux_t.data_ptr())
+    cuda_lib.KERNELS["pose_predict_full" if full else "pose_predict"].launch(
+        dtype, *ptrs, cov_out.data_ptr(), mu_out.data_ptr(), y.data_ptr(), c.data_ptr(), nb,
         cuda_lib.stream_ptr(dev),
     )
     return cov_out, mu_out
 
 
-def _pose_predict_lanes(cov_t, mu_t, rr_t, coeff, offs, q0m, scal):
+def _pose_predict_lanes(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t=None):
     if cov_t.device.type == "cuda":
-        return predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal)
+        return predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t)
     if cov_t.device.type == "cpu":
-        return predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal)
+        return predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t)
     raise ValueError(f"predict_lanes: no path for device {cov_t.device}")
 
 
@@ -338,11 +371,13 @@ def _unpack_storage(s: torch.Tensor, like):
 
 
 def _decay_vectors(params: "PoseUKFParams", dt, dtype):
-    """(54, 1) per-storage-row Markov coefficient −dt/τ and rest point."""
+    """Per-storage-row Markov coefficient −dt/τ and rest point: (54, 1) for a
+    shared parameter set, (54, B) for a banked one."""
     dev = params.process_noise.device
-    full = lambda k, v: v.to(dtype).reshape(1).expand(k)
-    zeros = lambda k: torch.zeros(k, dtype=dtype, device=dev)
-    cm = lambda m: m.T.reshape(9).to(dtype)
+    bs = tuple(params.gyro_bias_tau.shape)  # () shared, (B,) banked
+    full = lambda k, v: v.to(dtype)[..., None].expand(*bs, k)
+    zeros = lambda k: torch.zeros(*bs, k, dtype=dtype, device=dev)
+    cm = lambda m: m.transpose(-1, -2).reshape(*bs, 9).to(dtype)
     taus = torch.cat(
         [
             zeros(13),  # pos, quat, vel, acc — no decay
@@ -355,7 +390,8 @@ def _decay_vectors(params: "PoseUKFParams", dt, dtype):
             full(4, -dt / params.water_velocity_tau),
             full(2, -dt / params.adcp_bias_tau),
             full(1, -dt / params.water_density_tau),
-        ]
+        ],
+        dim=-1,
     )
     offs = torch.cat(
         [
@@ -367,10 +403,11 @@ def _decay_vectors(params: "PoseUKFParams", dt, dtype):
             cm(params.lin_damping_offset),
             cm(params.quad_damping_offset),
             zeros(6),
-            params.water_density_offset.reshape(1).to(dtype),
-        ]
+            params.water_density_offset.to(dtype)[..., None],
+        ],
+        dim=-1,
     )
-    return taus[:, None], offs[:, None]
+    return taus.reshape(-1, STORAGE_DIM).T, offs.reshape(-1, STORAGE_DIM).T
 
 
 def _predict_operands_shared(params: "PoseUKFParams", dt, dtype):
@@ -433,15 +470,83 @@ def set_rotation_rate_lanes(lstate: LanesBankState, rr: torch.Tensor) -> LanesBa
     return lstate._replace(rr_t=rr.to(lstate.rr_t.dtype).T.contiguous())
 
 
-def predict_lanes(lstate: LanesBankState, params: "PoseUKFParams", dt) -> LanesBankState:
-    """Fused prediction on kernel-layout state (shared parameter set)."""
-    if params.process_noise.ndim != 2:
-        raise NotImplementedError("predict_lanes: banked parameter sets are not ported yet")
-    coeff, offs, q0m, scal = _predict_operands_shared(params, dt, lstate.cov_t.dtype)
-    cov_t, mu_t = _pose_predict_lanes(lstate.cov_t, lstate.mu_t, lstate.rr_t, coeff, offs, q0m, scal)
+class BankedPredictOperands(NamedTuple):
+    """Kernel operands of the full (banked-parameter) prediction mode. They
+    depend only on the parameter bank and the shared dt, so a mission builds
+    them once with :func:`banked_predict_operands` and reuses them every
+    tick (at a 131 072 bank ``q0m_t`` alone is 1.47 GB in float32)."""
+
+    coeff: torch.Tensor  # (54, B) per-lane Markov coefficient −dt/τ
+    offs: torch.Tensor  # (54, B) per-lane Markov rest point
+    q0m_t: torch.Tensor  # (53, 53, B) per-lane dt²-scaled Q, orientation block zeroed
+    aux_t: torch.Tensor  # (12, B) [lat0; 1/m_rad; dt²·Qrot ×9 row-major; wv_scale·dt³]
+    scal: torch.Tensor  # (14, 1) only dt and EARTHW set
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, tuple):
+        names = tree._fields if hasattr(tree, "_fields") else range(len(tree))
+        for name, leaf in zip(names, tree):
+            yield from _leaves(leaf, f"{path}.{name}")
+    else:
+        yield path, tree
+
+
+def banked_predict_operands(params: "PoseUKFParams", dt, dtype) -> BankedPredictOperands:
+    """Operands of the full prediction mode from a fully banked ``params``
+    (a leading bank axis on every leaf). JAX's ``nb_padded`` argument has no
+    counterpart: the port does not pad the bank."""
+    nb = params.process_noise.shape[0]
+    bad = [name for name, leaf in _leaves(params) if leaf.ndim == 0 or leaf.shape[0] != nb]
+    if bad:
+        raise ValueError(
+            "the banked prediction needs a fully banked parameter set (a leading bank axis "
+            f"on every leaf; broadcast shared leaves first); offending leaves: {bad[:6]}"
+        )
+    dev = params.process_noise.device
+    dt = torch.full((), float(dt), dtype=dtype, device=dev)
+    coeff, offs = _decay_vectors(params, dt, dtype)
+    q0 = params.process_noise.to(dtype)  # (B, 53, 53)
+    qrot = (dt**2 * q0[:, 3:6, 3:6]).reshape(nb, 9)
+    q0m = dt**2 * q0
+    q0m[:, 3:6, 3:6] = 0.0
+    aux = torch.cat(
+        [
+            params.projection.lat0.to(dtype)[:, None],
+            (1.0 / params.projection.m_rad.to(dtype))[:, None],
+            qrot,
+            (params.water_velocity_scale.to(dtype) * dt**3)[:, None],
+        ],
+        dim=-1,
+    )
+    scal = torch.zeros(_NSCAL, 1, dtype=dtype, device=dev)
+    scal[_S_DT, 0] = dt
+    scal[_S_EARTHW, 0] = geo.EARTHW
+    return BankedPredictOperands(
+        coeff=coeff.contiguous(), offs=offs.contiguous(), q0m_t=q0m.permute(1, 2, 0).contiguous(),
+        aux_t=aux.T.contiguous(), scal=scal,
+    )
+
+
+def predict_lanes(
+    lstate: LanesBankState, params: "PoseUKFParams", dt, banked_ops: BankedPredictOperands | None = None
+) -> LanesBankState:
+    """Fused prediction on kernel-layout state. A shared ``params`` takes the
+    shared mode; a banked one the full mode, with its operands from
+    ``banked_ops`` (built once per mission by :func:`banked_predict_operands`)
+    or, if None, built for this call."""
+    dtype = lstate.cov_t.dtype
+    if banked_ops is None and params.process_noise.ndim == 3:
+        banked_ops = banked_predict_operands(params, dt, dtype)
+    if banked_ops is not None:
+        ops = (banked_ops.coeff, banked_ops.offs, banked_ops.q0m_t, banked_ops.scal, banked_ops.aux_t)
+    else:
+        ops = _predict_operands_shared(params, dt, dtype)
+    cov_t, mu_t = _pose_predict_lanes(lstate.cov_t, lstate.mu_t, lstate.rr_t, *ops)
     return lstate._replace(cov_t=cov_t, mu_t=mu_t)
 
 
 def predict_fused_banked(state: "PoseUKFState", params: "PoseUKFParams", dt) -> "PoseUKFState":
-    """Fused prediction over a bank-first state: pack → one launch → unpack."""
+    """Fused prediction over a bank-first state (shared or banked
+    parameters): pack → one launch → unpack."""
     return from_lanes(predict_lanes(to_lanes(state), params, dt), state)

@@ -4,15 +4,19 @@ Arnold & Medagoda, ICRA 2018): a 53-DOF UKF over position, orientation,
 velocity, acceleration, IMU biases, gravity, the (x, y, ψ) inertia and
 damping sub-model, water currents, ADCP bias and water density.
 
-This slice holds the constructors, the process model and process-noise
-assembly, prediction, and the mission-tick measurement updates (velocity,
-acceleration, z and xy position, pressure, water velocity, body efforts in
-full mode), each in solo and ``_bank`` form.
+This port holds the constructors, the process model and process-noise
+assembly, prediction, and the measurement updates of the mission driver
+(velocity, acceleration, z and xy position, geographic position, delayed
+position, pressure, water velocity, body efforts in full mode), each in solo
+and ``_bank`` form.
 
 * Solo functions take one filter (leaves without a bank axis) and run the
   generic path (``ops/ukf.py``) on a bank of one.
 * ``*_bank`` functions take a bank (leading axis on every state leaf) and a
-  shared parameter set. A CUDA bank goes through the fused kernels
+  parameter set that is either shared or banked (a leading bank axis on
+  every leaf — a Monte-Carlo sweep). JAX ``vmap``s over a banked set; here
+  each banked leaf broadcasts along the bank axis (:func:`_per_field` lifts
+  the scalar ones). A CUDA bank goes through the fused kernels
   (``models/pose_fused.py``, ``models/pose_update_fused.py``); a CPU bank
   takes the generic path; any other device raises.
 """
@@ -29,6 +33,7 @@ from ..ops import manifolds as mf
 from ..ops import ukf
 from ..parallel.bank import tree_map
 from ..utils.config import PoseUKFConfig
+from ..utils.device import resolve_device
 
 __all__ = [
     "PoseState",
@@ -55,6 +60,8 @@ __all__ = [
     "update_pressure",
     "update_water_velocity",
     "update_body_efforts",
+    "update_geographic_position",
+    "update_delayed_position",
     "update_velocity_bank",
     "update_acceleration_bank",
     "update_z_position_bank",
@@ -62,6 +69,8 @@ __all__ = [
     "update_pressure_bank",
     "update_water_velocity_bank",
     "update_body_efforts_bank",
+    "update_geographic_position_bank",
+    "update_delayed_position_bank",
 ]
 
 
@@ -160,6 +169,7 @@ def initial_state_from_config(
     """Initial state of the first ctor: zero velocity/acceleration/currents,
     biases rotated into the body frame, WGS-84 gravity, (x, y, ψ) blocks
     extracted from the 6×6 model."""
+    device = resolve_device(device)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     rot_ib = _rot_or_eye(imu_in_body_rot, dtype, device)
     gravity = geo.wgs84_gravity(
@@ -201,6 +211,7 @@ def initial_cov_from_config(
     device=None,
 ) -> torch.Tensor:
     """Blockwise initial covariance."""
+    device = resolve_device(device)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     eye = lambda n: torch.eye(n, dtype=dtype, device=device)
     rot = _rot_or_eye(imu_in_body_rot, dtype, device)
@@ -232,6 +243,7 @@ def process_noise_from_config(
 ) -> torch.Tensor:
     """``setProcessNoiseFromConfig``: Euler integration error terms from
     max_jerk, first-order-Markov 2/(τ·dt)·instability² for the rest."""
+    device = resolve_device(device)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     eye = lambda n: torch.eye(n, dtype=dtype, device=device)
     rot = _rot_or_eye(imu_in_body_rot, dtype, device)
@@ -279,6 +291,7 @@ def params_from_config(
     device=None,
 ) -> PoseUKFParams:
     """``PoseUKFParameter`` population, Markov rest points, process noise."""
+    device = resolve_device(device)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     rot = _rot_or_eye(imu_in_body_rot, dtype, device)
     trans = torch.zeros(3, dtype=dtype, device=device) if imu_in_body_trans is None else t(imu_in_body_trans)
@@ -323,7 +336,9 @@ def init_from_pose(
     dtype=torch.float64,
     device=None,
 ) -> tuple[PoseUKFState, PoseUKFParams]:
-    """First ctor plus ``setProcessNoiseFromConfig``."""
+    """First ctor plus ``setProcessNoiseFromConfig``. ``device=None`` builds on
+    the card (see ``utils/device.py``); pass ``device="cpu"`` for the CPU."""
+    device = resolve_device(device)
     mu = initial_state_from_config(
         imu_in_nwu_pos, imu_in_nwu_rot, config, model_parameters, imu_in_body_rot, dtype, device
     )
@@ -352,9 +367,15 @@ def init_from_state(initial_state: PoseState, state_cov, params: PoseUKFParams) 
 # ---------------------------------------------------------------------------
 
 
+def _per_field(p, rank: int):
+    """A scalar parameter — shared ``()`` or per instance ``(B,)`` — shaped to
+    broadcast against a field of rank ``rank`` over leading (…, B) axes."""
+    return p.reshape(p.shape + (1,) * rank) if isinstance(p, torch.Tensor) else p
+
+
 def _process_model(chi: PoseState, rotation_rate, params: PoseUKFParams, dt) -> PoseState:
     """``processModel`` on (2n+1, B)-batched sigma points; ``rotation_rate``
-    is (B, 3)."""
+    is (B, 3); ``params`` shared or banked."""
     position = chi.position + dt * chi.velocity
     lat, _ = geo.nav_to_world(params.projection, chi.position[..., 0], chi.position[..., 1])
     earth_rot = geo.earth_rotation_nav(lat).to(chi.position.dtype)
@@ -362,8 +383,8 @@ def _process_model(chi: PoseState, rotation_rate, params: PoseUKFParams, dt) -> 
     orientation = mf.so3_boxplus(chi.orientation, angular_velocity, dt)
     velocity = chi.velocity + dt * chi.acceleration
 
-    def decay(x, offset, tau):
-        return x + dt * (-1.0 / tau) * (x - offset)
+    def decay(x, offset, tau, rank=1):
+        return x + dt * (-1.0 / _per_field(tau, rank)) * (x - offset)
 
     return PoseState(
         position=position,
@@ -373,13 +394,15 @@ def _process_model(chi: PoseState, rotation_rate, params: PoseUKFParams, dt) -> 
         bias_gyro=decay(chi.bias_gyro, params.gyro_bias_offset, params.gyro_bias_tau),
         bias_acc=decay(chi.bias_acc, params.acc_bias_offset, params.acc_bias_tau),
         gravity=chi.gravity,
-        inertia=decay(chi.inertia, params.inertia_offset, params.inertia_tau),
-        lin_damping=decay(chi.lin_damping, params.lin_damping_offset, params.lin_damping_tau),
-        quad_damping=decay(chi.quad_damping, params.quad_damping_offset, params.quad_damping_tau),
+        inertia=decay(chi.inertia, params.inertia_offset, params.inertia_tau, 2),
+        lin_damping=decay(chi.lin_damping, params.lin_damping_offset, params.lin_damping_tau, 2),
+        quad_damping=decay(chi.quad_damping, params.quad_damping_offset, params.quad_damping_tau, 2),
         water_velocity=decay(chi.water_velocity, 0.0, params.water_velocity_tau),
         water_velocity_below=decay(chi.water_velocity_below, 0.0, params.water_velocity_tau),
         bias_adcp=decay(chi.bias_adcp, 0.0, params.adcp_bias_tau),
-        water_density=decay(chi.water_density, params.water_density_offset, params.water_density_tau),
+        water_density=decay(
+            chi.water_density, _per_field(params.water_density_offset, 1), params.water_density_tau
+        ),
     )
 
 
@@ -387,27 +410,19 @@ def assemble_process_noise(mu: PoseState, params: PoseUKFParams, dt) -> torch.Te
     """Per-step process noise of ``predictionStepImpl`` for a bank (B, 53, 53):
     rotate the orientation block into the nav frame with the pre-predict
     orientation, inflate the water-current noise with the z-weighted speed,
-    scale the whole Q by dt²."""
+    scale the whole Q by dt². ``params`` shared or banked."""
     q0 = params.process_noise
     nb = mu.position.shape[0]
     so = POSE_MANIFOLD.block("orientation")
     rot = mf.quat_to_matrix(mu.orientation)
     q = q0.expand(nb, 53, 53).clone()
-    q[:, so, so] = rot @ q0[so, so] @ rot.transpose(-1, -2)
+    q[:, so, so] = rot @ q0[..., so, so] @ rot.transpose(-1, -2)
     scale = torch.tensor([1.0, 1.0, 10.0], dtype=mu.velocity.dtype, device=mu.velocity.device)
     sv = mu.velocity * scale
     wv_extra = params.water_velocity_scale * (sv * sv).sum(-1) * dt
     idx = torch.arange(46, 50, device=q.device)
     q[:, idx, idx] = q[:, idx, idx] + wv_extra[:, None]
     return (dt**2 * q).to(q0.dtype)
-
-
-def _check_shared(params: PoseUKFParams, what: str) -> None:
-    if params.process_noise.ndim != 2:
-        raise NotImplementedError(
-            f"{what}: banked (per-instance) parameter sets are not ported yet; "
-            "pass one shared PoseUKFParams"
-        )
 
 
 def _predict_generic(bstate: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFState:
@@ -444,9 +459,9 @@ def _fused_route(bstate: PoseUKFState) -> bool:
 
 
 def predict_bank(bstate: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFState:
-    """Bank prediction: the fused predict kernel for a CUDA bank, the generic
-    batched path for a CPU bank (shared parameter set)."""
-    _check_shared(params, "predict_bank")
+    """Bank prediction: the fused predict kernel for a CUDA bank (its
+    shared-parameter or fully-banked mode), the generic batched path for a
+    CPU bank."""
     if _fused_route(bstate):
         from . import pose_fused
 
@@ -456,13 +471,19 @@ def predict_bank(bstate: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFStat
 
 def update_bank(bstate, params, z, meas_cov, h, deps, gate_threshold=None):
     """Bank update with a vector measurement model ``h`` (``deps`` names the
-    PoseState fields it reads) on the generic path — on a CUDA bank its
-    sigma deltas come from kernel K1. The fused generic-h tail is not ported
-    yet; the typed ``update_*_bank`` functions use the fused kernel."""
+    PoseState fields it reads; ``h`` broadcasts over (2n+1, B) sigma points,
+    so it may close over banked parameters). A CUDA bank takes the fused
+    generic-h pipeline (K1 sigma deltas, ``h`` in PyTorch, the K4 update
+    tail), a CPU bank the generic path."""
     unknown = set(deps) - set(PoseState._fields)
     if unknown:
         raise ValueError(f"deps names unknown PoseState fields: {sorted(unknown)}")
-    _check_shared(params, "update_bank")
+    if _fused_route(bstate):
+        from . import pose_update_fused
+
+        return pose_update_fused.update_fused_banked(
+            bstate, params, z, meas_cov, h, deps, gate_threshold
+        )
     mu, cov, info = ukf.update(
         POSE_MANIFOLD, bstate.mu, bstate.cov, torch.as_tensor(z, dtype=bstate.cov.dtype),
         h, meas_cov, gate_threshold=gate_threshold,
@@ -539,8 +560,10 @@ def _h_water_velocity(cell_weighting):
 def _efforts_measurement(chi: PoseState, params: PoseUKFParams, rotation_rate_body) -> torch.Tensor:
     """``measurementEfforts``: Fossen inverse dynamics with the per-sigma-point
     (x, y, ψ) inertia/damping substituted into the 6×6 model;
-    ``rotation_rate_body`` is (3,) or (B, 3)."""
+    ``rotation_rate_body`` is (3,) or (B, 3); ``params`` shared or banked."""
     m = params.model._replace(
+        weight=_per_field(params.model.weight, 1),
+        buoyancy=_per_field(params.model.buoyancy, 1),
         inertia_matrix=dyn.embed_xy_yaw(params.model.inertia_matrix, chi.inertia),
         damping_linear=dyn.embed_xy_yaw(params.model.damping_linear, chi.lin_damping),
         damping_quadratic=dyn.embed_xy_yaw(params.model.damping_quadratic, chi.quad_damping),
@@ -653,9 +676,12 @@ def update_water_velocity_bank(bstate, params, z, meas_cov, cell_weighting):
 
 def update_body_efforts_bank(bstate, params, z, meas_cov, rotation_rate_body):
     """Model-aided effort update (full mode). ``rotation_rate_body`` is the
-    compensated body rate, (3,) shared or (B, 3) per instance."""
+    compensated body rate, (3,) shared or (B, 3) per instance. On a CUDA
+    bank a shared vehicle model runs in-kernel (K3); a banked one (or a
+    banked ``imu_in_body``) takes the generic-h pipeline (K1, ``h``, K4)."""
     rr = torch.as_tensor(rotation_rate_body, dtype=bstate.cov.dtype, device=bstate.cov.device)
-    if _fused_route(bstate):
+    banked_model = params.model.inertia_matrix.ndim == 3 or params.imu_in_body.ndim == 2
+    if _fused_route(bstate) and not banked_model:
         from . import pose_update_fused
 
         nb = bstate.cov.shape[0]
@@ -667,6 +693,42 @@ def update_body_efforts_bank(bstate, params, z, meas_cov, rotation_rate_body):
     return update_bank(
         bstate, params, z, meas_cov, lambda s: _efforts_measurement(s, params, rr), _EFFORTS_DEPS
     )
+
+
+def _geographic_xy(params, lat, lon, orientation, gps_in_body, nb=None):
+    """GPS fix projected to the NWU plane, minus the antenna lever arm
+    rotated by ``orientation`` (``PoseUKF.cpp:567-579``)."""
+    x, y = geo.world_to_nav(params.projection, lat, lon)
+    if nb is not None:
+        x, y = x.expand(nb), y.expand(nb)
+    projected = torch.stack([x, y], dim=-1).to(orientation.dtype)
+    if gps_in_body is not None:
+        g = torch.as_tensor(gps_in_body, dtype=orientation.dtype, device=orientation.device)
+        projected = projected - mf.quat_rotate(orientation, g)[..., :2]
+    return projected
+
+
+def update_geographic_position_bank(bstate, params, lat, lon, meas_cov, gps_in_body=None):
+    """GPS fixes: each instance's (lat, lon) — (B,), or scalars shared by the
+    bank — projected through its own (shared or banked) anchor, the lever
+    arm ``gps_in_body`` ((3,) or (B, 3)) rotated by its own mean
+    orientation, then the χ²-95-gated XY update."""
+    dtype, device, nb = bstate.cov.dtype, bstate.cov.device, bstate.cov.shape[0]
+    lat = torch.as_tensor(lat, dtype=dtype, device=device).expand(nb)
+    lon = torch.as_tensor(lon, dtype=dtype, device=device).expand(nb)
+    projected = _geographic_xy(params, lat, lon, bstate.mu.orientation, gps_in_body, nb)
+    return update_xy_position_bank(bstate, params, projected, meas_cov, ukf.D2P95)
+
+
+def update_delayed_position_bank(bstate, params, z, meas_cov, delayed_position):
+    """Active delayed-position path (``PoseUKF.cpp:514-527``): shift each
+    instance's XY fix by its own (current − delayed) position, then the XY
+    update. ``delayed_position`` is (B, 2) or (2,)."""
+    dtype, device = bstate.cov.dtype, bstate.cov.device
+    shifted = torch.as_tensor(z, dtype=dtype, device=device) + (
+        bstate.mu.position[:, :2] - torch.as_tensor(delayed_position, dtype=dtype, device=device)
+    )
+    return update_xy_position_bank(bstate, params, shifted, meas_cov)
 
 
 # ---------------------------------------------------------------------------
@@ -723,3 +785,22 @@ def update_body_efforts(state, params, z, meas_cov):
     return _solo_update(
         state, params, z, meas_cov, lambda chi: _efforts_measurement(chi, params, rr_body)
     )
+
+
+def update_geographic_position(state, params, lat, lon, meas_cov, gps_in_body=None):
+    """GPS fix (``PoseUKF.cpp:567-579``): project to the NWU plane, correct
+    the antenna lever arm with the current orientation, χ²-95 gate."""
+    dtype, device = state.cov.dtype, state.cov.device
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    projected = _geographic_xy(params, t(lat), t(lon), state.mu.orientation, gps_in_body)
+    return update_xy_position(state, params, projected, meas_cov, ukf.D2P95)
+
+
+def update_delayed_position(state, params, z, meas_cov, delayed_position):
+    """Active delayed-position path (``PoseUKF.cpp:514-527``): shift the fix
+    by (current − delayed) position, then a standard XY update."""
+    dtype, device = state.cov.dtype, state.cov.device
+    shifted = torch.as_tensor(z, dtype=dtype, device=device) + (
+        state.mu.position[:2] - torch.as_tensor(delayed_position, dtype=dtype, device=device)
+    )
+    return update_xy_position(state, params, shifted, meas_cov)

@@ -1,10 +1,24 @@
-"""Fused PoseUKF measurement update with the model in-kernel — kernel K3 and
-its plain version.
+"""Fused PoseUKF measurement updates — kernels K3 and K4 and their plain
+versions.
 
-Counterpart of ``slam_uwv_kalman_filters_tpu/models/pose_update_fused.py``
-(``_make_update_model_kernel`` with ``_factor_innovation``,
-``_update_tail_from_sc`` and ``_model_measurement``): the whole update in one
-launch, for the seven measurement models of :data:`FUSED_MODELS`.
+Counterpart of ``slam_uwv_kalman_filters_tpu/models/pose_update_fused.py``.
+Two routes, as in JAX:
+
+* **In-kernel models (K3)** — ``_make_update_model_kernel`` with
+  ``_factor_innovation``, ``_update_tail_from_sc`` and ``_model_measurement``:
+  the whole update in one launch, for the seven measurement models of
+  :data:`FUSED_MODELS` (below).
+* **Generic h (K4)** — ``_make_update_kernel`` / ``_update_tail``: K1's sigma
+  deltas of the lanes covariance, the measurement model ``h`` evaluated in
+  PyTorch on the rows it depends on (:func:`_measurement_stage`), then the
+  update tail in one launch: S = ½ΣdZdZᵀ + R, C = ½ΣδdZᵀ over all 107
+  points, and the gain, gate, correction and downdate of K3 (one shared copy,
+  ``csrc/common.cuh::update_tail``). :func:`update_lanes` and
+  :func:`update_fused_banked` take it; so does a banked vehicle model in
+  :func:`update_body_efforts_lanes`. The measurement dimension is capped at
+  :data:`MAX_TAIL_M`.
+
+The in-kernel route:
 
 1. The shared equilibrated Cholesky keeps the finalized factor columns L̃
    and the row scale d (L = diag(d)·L̃).
@@ -17,8 +31,9 @@ launch, for the seven measurement models of :data:`FUSED_MODELS`.
    accepts any; a NaN S leaves the instance bit-identical to its prior), the
    manifold correction μ ⊞ W·y and the half-triangle downdate cov − W·Wᵀ.
 
-On a CUDA tensor :func:`update_model_lanes` launches ``csrc/pose_update.cu``;
-on a CPU tensor it runs :func:`update_model_lanes_plain`. Model parameters
+On a CUDA tensor :func:`update_model_lanes` launches ``csrc/pose_update.cu``
+and :func:`update_lanes` ``csrc/pose_update_tail.cu``; on a CPU tensor they
+run :func:`update_model_lanes_plain` and :func:`update_tail_plain`. Model parameters
 come as 5 aux values, shared (a (6, 1) ``scal`` block: threshold + 5 aux)
 or per instance (a (5, B) ``aux_t``); ``body_efforts`` also reads the
 119-scalar shared vehicle-model block of :func:`_efforts_model_scal`.
@@ -34,6 +49,7 @@ from ..ops import cuda_lib
 from ..ops import geodesy as geo
 from ..ops import manifolds as mf
 from ..ops import ukf
+from ..ops.kernels import sigma_deltas_lanes
 from .pose_fused import (
     NSIG,
     STORAGE_DIM,
@@ -47,6 +63,7 @@ from .pose_fused import (
     _rot_fwd,
     _rot_inv,
     _sigma_columns,
+    _unpack_storage,
     from_lanes,
     to_lanes,
 )
@@ -56,6 +73,11 @@ if TYPE_CHECKING:
 
 __all__ = [
     "FUSED_MODELS",
+    "MAX_TAIL_M",
+    "update_fused_banked",
+    "update_lanes",
+    "update_tail_cuda",
+    "update_tail_plain",
     "update_model_lanes",
     "update_model_lanes_cuda",
     "update_model_lanes_plain",
@@ -78,6 +100,10 @@ FUSED_MODELS = {
 }
 MODEL_ID = {name: i for i, name in enumerate(FUSED_MODELS)}
 _EFF_NSCAL = 119
+# largest measurement dimension of the generic-h tail K4 (instantiated for
+# m = 1 … 6 at compile time, csrc/pose_update_tail.cu; the JAX package passes
+# 1, 2, 3 and 6)
+MAX_TAIL_M = 6
 
 
 def _efforts_model_scal(params: "PoseUKFParams", dtype) -> torch.Tensor:
@@ -85,9 +111,9 @@ def _efforts_model_scal(params: "PoseUKFParams", dtype) -> torch.Tensor:
     D_quad ×36; weight; buoyancy; cog ×3; cob ×3; imu_in_body ×3]."""
     m = params.model
     if m.inertia_matrix.ndim != 2 or params.imu_in_body.ndim != 1:
-        raise NotImplementedError(
-            "body_efforts with banked vehicle-model parameters needs the generic-h "
-            "fused tail, which is not ported yet"
+        raise ValueError(
+            "the in-kernel body_efforts model takes a shared vehicle model; a banked one "
+            "goes through update_lanes (update_body_efforts_lanes routes it)"
         )
     return torch.cat(
         [
@@ -232,8 +258,18 @@ def update_model_lanes_plain(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, msc
             ) + r_t[a, b2]
     lt_kj = lt.permute(1, 2, 0)  # (k, j, B)
     C = [0.5 * dvec.T * (lt_kj * (Zp[a] - Zm[a])[None]).sum(1) for a in range(m)]  # (53, B)
+    cov_out, mu_out, m2, acc = _update_tail_plain(S, C, nu, mu_t, cov_t, scal[0, 0])
+    return cov_out, mu_out, m2, acc, nu.contiguous()
 
-    # m×m Cholesky of S, W = C·L⁻ᵀ (ascending), y = L⁻¹ν
+
+def _update_tail_plain(S, C, nu, mu_t, cov_t, thr):
+    """Gain, gate, correction and downdate shared by the plain K3 and K4,
+    from S (m×m of (B,)), C (m of (53, B)) and ν (m, B): the m×m Cholesky of
+    S, W = C·L⁻ᵀ (ascending), y = L⁻¹ν, m2 = |y|², the gate as a select (a
+    threshold < 0 accepts any; a NaN S leaves the prior), μ ⊞ W·y and the
+    half-triangle downdate cov − W·Wᵀ. Returns (cov_out half-valid with
+    zeros in the other half, mu_out, m2 (1, B), acc (1, B) as 1.0/0.0)."""
+    m = len(C)
     L = [[None] * m for _ in range(m)]
     for j in range(m):
         s = S[j][j]
@@ -255,7 +291,7 @@ def update_model_lanes_plain(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, msc
             u = u - L[i][k] * y[k]
         W[i], y[i] = t * inv_diag[i], u * inv_diag[i]
     m2 = sum(y[i] * y[i] for i in range(m))
-    thr = scal[0, 0]
+    thr = torch.as_tensor(thr, dtype=cov_t.dtype, device=cov_t.device)
     acc = (m2 <= thr) | (thr < 0.0)
 
     corr = sum(W[i] * y[i] for i in range(m))  # (53, B)
@@ -270,7 +306,60 @@ def update_model_lanes_plain(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, msc
     prior = _mirror_half(cov_t)
     cov_out = _lower_half(torch.where(acc[None, None], prior - down, prior))
     return (cov_out.contiguous(), mu_out.contiguous(), m2[None].contiguous(),
-            acc.to(cov_t.dtype)[None].contiguous(), nu.contiguous())
+            acc.to(cov_t.dtype)[None].contiguous())
+
+
+def update_tail_plain(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
+    """The generic-h update tail in PyTorch, operand for operand what K4
+    computes: deltas_t (107, 53, B) sigma deltas, dz_t (107, m, B)
+    measurement deviations, nu_t (m, B) innovation, r_t (m, m, B), mu_t
+    (54, B), cov_t (53, 53, B) half-valid, ``thr`` the gate threshold (< 0
+    accepts any). S = ½ΣdZdZᵀ + R and C = ½ΣδdZᵀ over all 107 points, then
+    :func:`_update_tail_plain`. Returns (cov_out, mu_out, m2 (1, B), acc
+    (1, B))."""
+    m = dz_t.shape[1]
+    S = [[None] * m for _ in range(m)]
+    for a in range(m):
+        for b2 in range(a + 1):
+            S[a][b2] = S[b2][a] = 0.5 * (dz_t[:, a] * dz_t[:, b2]).sum(0) + r_t[a, b2]
+    C = 0.5 * torch.einsum("pkb,pib->ikb", deltas_t, dz_t)  # (m, 53, B)
+    return _update_tail_plain(S, list(C), nu_t, mu_t, cov_t, thr)
+
+
+def update_tail_cuda(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
+    """K4 on the card, same operands and outputs as :func:`update_tail_plain`
+    (the other half of cov_out is left unwritten)."""
+    n, nb, m = TANGENT_DIM, cov_t.shape[-1], dz_t.shape[1]
+    dev, dtype = cov_t.device, cov_t.dtype
+    ops = dict(deltas_t=deltas_t, dz_t=dz_t, nu_t=nu_t, r_t=r_t, mu_t=mu_t, cov_t=cov_t)
+    shapes = dict(deltas_t=(NSIG, n, nb), dz_t=(NSIG, m, nb), nu_t=(m, nb), r_t=(m, m, nb),
+                  mu_t=(STORAGE_DIM, nb), cov_t=(n, n, nb))
+    for key, shape in shapes.items():
+        if tuple(ops[key].shape) != shape:
+            raise ValueError(f"pose_update_tail: {key} has shape {tuple(ops[key].shape)}, expected {shape}")
+    empty = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+    cov_out, mu_out, m2, acc, w = empty(n, n, nb), empty(STORAGE_DIM, nb), empty(1, nb), empty(1, nb), empty(m, n, nb)
+    cuda_lib.check_lanes("pose_update_tail", dev, dtype, cov_out=cov_out, **ops)
+    cuda_lib.KERNELS["pose_update_tail"].launch(
+        dtype, m, *(t.data_ptr() for t in (deltas_t, dz_t, nu_t, r_t, mu_t, cov_t)), float(thr),
+        cov_out.data_ptr(), mu_out.data_ptr(), m2.data_ptr(), acc.data_ptr(), w.data_ptr(), nb,
+        cuda_lib.stream_ptr(dev),
+    )
+    return cov_out, mu_out, m2, acc
+
+
+def _pose_update_lanes(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
+    m = dz_t.shape[1]
+    if not 1 <= m <= MAX_TAIL_M:
+        raise ValueError(
+            f"the generic-h update tail takes a measurement dimension 1 … {MAX_TAIL_M} "
+            f"(MAX_TAIL_M, the kernel's compile-time cap); got m = {m}"
+        )
+    if cov_t.device.type == "cuda":
+        return update_tail_cuda(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr)
+    if cov_t.device.type == "cpu":
+        return update_tail_plain(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr)
+    raise ValueError(f"update_lanes: no path for device {cov_t.device}")
 
 
 def update_model_lanes_cuda(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, mscal=None):
@@ -383,17 +472,114 @@ def update_velocity_fused_banked(bstate, params, z, meas_cov, gate_threshold=Non
 
 
 def update_body_efforts_lanes(lstate, params: "PoseUKFParams", z, meas_cov):
-    """Model-aided effort update on kernel-layout state (full mode, shared
-    vehicle model). Each instance's bias- and earth-rate-compensated body
-    rate (``getRotationRate`` of its lanes-resident mean) rides the
-    per-instance aux lanes."""
+    """Model-aided effort update on kernel-layout state (full mode). Each
+    instance's bias- and earth-rate-compensated body rate
+    (``getRotationRate`` of its lanes-resident mean) rides the per-instance
+    aux lanes of K3 with a shared vehicle model; a banked vehicle model (or
+    a banked ``imu_in_body``) takes the generic-h route (K1, ``h`` in
+    PyTorch over the banked parameters, K4)."""
     dtype = lstate.cov_t.dtype
     mu = lstate.mu_t
     lat, _ = geo.nav_to_world(params.projection, mu[0], mu[1])
     earth_rot = geo.earth_rotation_nav(lat).to(dtype)  # (B, 3)
     q = mu[3:7].T
     rr_bank = lstate.rr_t.T - mu[13:16].T - mf.quat_rotate_inv(q, earth_rot)
+    if params.model.inertia_matrix.ndim == 3 or params.imu_in_body.ndim == 2:
+        from .pose_ukf import _EFFORTS_DEPS, _efforts_measurement
+
+        return update_lanes(
+            lstate, params, z, meas_cov, lambda chi, rr: _efforts_measurement(chi, params, rr),
+            _EFFORTS_DEPS, h_aux=rr_bank,
+        )
     return update_model_lanes(
         "body_efforts", lstate, z, meas_cov, aux_bank=rr_bank,
         mscal=_efforts_model_scal(params, dtype),
     )
+
+
+# ---------------------------------------------------------------------------
+# the generic-h route: K1 deltas, h in PyTorch, the K4 tail
+# ---------------------------------------------------------------------------
+
+
+def _field_rows() -> dict:
+    """Tangent-row slice of each PoseState field, from ``POSE_MANIFOLD``."""
+    from .pose_ukf import POSE_MANIFOLD
+
+    return {f.name: (POSE_MANIFOLD.block(f.name).start, POSE_MANIFOLD.block(f.name).stop)
+            for f in POSE_MANIFOLD.fields}
+
+
+def _measurement_stage(deltas_t, mu_bank, z, deps, h, h_aux=None):
+    """``h`` on the sigma points μ ⊞ δ of the fields in ``deps`` (the others
+    pinned to the mean, valid because ``deps`` lists every field ``h``
+    reads), as JAX's stage of the same name; plain PyTorch, outside any
+    kernel. ``h`` maps a PoseState with (107, B, …) fields to (107, B, m);
+    with ``h_aux`` it is called as ``h(chi, h_aux)`` and the (B, …) aux
+    broadcasts along the bank axis (JAX vmaps it per instance). Returns
+    (dZ (107, B, m), innovation (B, m)) about the plain mean of Z."""
+    from ..ops import manifolds as mf
+
+    rows = _field_rows()
+    unknown = set(deps) - set(rows)
+    if unknown:
+        raise ValueError(f"deps names unknown PoseState fields: {sorted(unknown)}")
+    nsig, nb = deltas_t.shape[0], deltas_t.shape[-1]
+    fields = {}
+    for name in mu_bank._fields:
+        val = getattr(mu_bank, name)
+        if name not in deps:
+            fields[name] = val.expand(nsig, *val.shape)
+            continue
+        lo, hi = rows[name]
+        d = deltas_t[:, lo:hi].permute(0, 2, 1)  # (107, B, k)
+        if name == "orientation":
+            fields[name] = mf.so3_boxplus(val, d)
+        elif val.ndim == 3:  # mat33, column-major tangent
+            fields[name] = val + d.reshape(nsig, nb, 3, 3).transpose(-1, -2)
+        else:
+            fields[name] = val + d
+    chi = mu_bank._replace(**fields)
+    Z = (h(chi) if h_aux is None else h(chi, h_aux)).to(deltas_t.dtype)
+    z_mean = Z.mean(dim=0)
+    return Z - z_mean, z - z_mean
+
+
+def _pose_state_from_storage(mu_t):
+    """(54, B) storage rows → a bank-first PoseState of views."""
+    from .pose_ukf import PoseState
+
+    return _unpack_storage(mu_t.T, PoseState(*([None] * len(PoseState._fields))))
+
+
+def update_lanes(lstate, params, z, meas_cov, h, deps, gate_threshold=None, h_aux=None):
+    """Measurement update with a measurement model ``h`` on kernel-layout
+    state (``deps`` names the PoseState fields ``h`` reads): K1's sigma
+    deltas of the half-valid covariance as it stands, ``h`` in PyTorch
+    (:func:`_measurement_stage`), the K4 tail. ``z`` (B, m), ``meas_cov``
+    (m, m) or (B, m, m), m ≤ :data:`MAX_TAIL_M`. Returns
+    ``(LanesBankState, UpdateInfo)``."""
+    del params  # h closes over whatever parameters it reads, as in JAX
+    dtype, dev = lstate.cov_t.dtype, lstate.cov_t.device
+    nb = lstate.cov_t.shape[-1]
+    z = torch.as_tensor(z, dtype=dtype, device=dev)
+    m = z.shape[-1]
+    if z.shape != (nb, m):
+        raise ValueError(f"z must be (bank={nb}, m); got {tuple(z.shape)}")
+    r_t = torch.as_tensor(meas_cov, dtype=dtype, device=dev).expand(nb, m, m).permute(1, 2, 0).contiguous()
+    deltas_t = sigma_deltas_lanes(lstate.cov_t)
+    dz, innovation = _measurement_stage(deltas_t, _pose_state_from_storage(lstate.mu_t), z, deps, h, h_aux)
+    thr = -1.0 if gate_threshold is None else float(gate_threshold)
+    covo_t, muo_t, m2, acc = _pose_update_lanes(
+        deltas_t, dz.permute(0, 2, 1).contiguous(), innovation.T.contiguous(), r_t,
+        lstate.mu_t, lstate.cov_t, thr,
+    )
+    info = ukf.UpdateInfo(mahalanobis2=m2[0], accepted=acc[0] > 0.5, innovation=innovation)
+    return lstate._replace(cov_t=covo_t, mu_t=muo_t), info
+
+
+def update_fused_banked(bstate, params, z, meas_cov, h, deps, gate_threshold=None, h_aux=None):
+    """Bank-first entry of the generic-h route: pack → :func:`update_lanes`
+    → unpack."""
+    lstate, info = update_lanes(to_lanes(bstate), params, z, meas_cov, h, deps, gate_threshold, h_aux)
+    return from_lanes(lstate, bstate), info

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F64 = ctypes.c_double
 
 
 class Kernel:
@@ -73,11 +74,21 @@ KERNELS = {
         # cov_t, mu_t, rr_t, coeff, offs, q0m, scal, cov_out, mu_out, y, c, nb, stream
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     ),
+    "pose_predict_full": Kernel(
+        "pose_predict_full", "slam_pose_predict_full", "csrc/pose_predict.cu",
+        # cov_t, mu_t, rr_t, coeff, offs, q0m_t, scal, aux_t, cov_out, mu_out, y, c, nb, stream
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    ),
     "pose_update_model": Kernel(
         "pose_update_model", "slam_pose_update_model", "csrc/pose_update.cu",
         # model, banked_aux, z_t, r_t, mu_t, cov_t, scal, mscal, aux_t,
         # cov_out, mu_out, m2, acc, nu_t, c, zs, cw, nb, stream
         (_I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    ),
+    "pose_update_tail": Kernel(
+        "pose_update_tail", "slam_pose_update_tail", "csrc/pose_update_tail.cu",
+        # m, deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr, cov_out, mu_out, m2, acc, w, nb, stream
+        (_I32, _P, _P, _P, _P, _P, _P, _F64, _P, _P, _P, _P, _P, _I64, _P),
     ),
 }
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
 from .manifolds import _cross, quat_rotate_inv
 
 __all__ = [
@@ -45,6 +46,7 @@ class UWVParameters(NamedTuple):
 def default_uwv_parameters(dtype=torch.float64, device=None) -> UWVParameters:
     """Neutral test vehicle: diagonal inertia incl. added mass, light
     damping, neutrally buoyant with coincident COG/COB."""
+    device = resolve_device(device)
     t = lambda v: torch.tensor(v, dtype=dtype, device=device)
     return UWVParameters(
         inertia_matrix=torch.diag(t([120.0, 150.0, 180.0, 20.0, 30.0, 35.0])),

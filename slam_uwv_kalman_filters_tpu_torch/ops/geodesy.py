@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = [
     "EARTHW",
     "WGS84_A",
@@ -63,6 +65,7 @@ class GeographicProjection(NamedTuple):
 
 
 def make_projection(latitude: float, longitude: float, dtype=torch.float64, device=None):
+    device = resolve_device(device)
     lat0 = torch.as_tensor(latitude, dtype=dtype, device=device)
     lon0 = torch.as_tensor(longitude, dtype=dtype, device=device)
     s2 = torch.sin(lat0) ** 2

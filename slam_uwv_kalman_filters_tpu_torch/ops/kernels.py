@@ -3,8 +3,10 @@
 Counterpart of ``slam_uwv_kalman_filters_tpu/ops/kernels.py``: the fused
 equilibrated Cholesky → ±column sigma deltas (``_sigma_deltas_kernel`` and
 its core ``equilibrated_sigma_columns``). On a CUDA tensor
-:func:`sigma_deltas_banked` launches the hand-written kernel of
-``csrc/sigma_deltas.cu``; on a CPU tensor it runs :func:`sigma_deltas_plain`.
+:func:`sigma_deltas_banked` (bank-first) and :func:`sigma_deltas_lanes`
+(bank-last, the lanes layout of ``models/pose_fused.py``) launch the
+hand-written kernel of ``csrc/sigma_deltas.cu``; on a CPU tensor they run the
+plain version.
 
 The deltas are ukfom-ordered: row 0 zero, rows 2j+1 / 2j+2 the ±j-th column
 of L = D·chol(D⁻¹·A·D⁻¹), D = √max(diag A, tiny). The diagonal equilibration
@@ -24,6 +26,9 @@ __all__ = [
     "equilibrated_cholesky",
     "sigma_deltas_banked",
     "sigma_deltas_cuda",
+    "sigma_deltas_lanes",
+    "sigma_deltas_lanes_cuda",
+    "sigma_deltas_lanes_plain",
     "sigma_deltas_plain",
 ]
 
@@ -56,22 +61,50 @@ def sigma_deltas_plain(cov: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros(nb, 1, n, dtype=cov.dtype, device=cov.device), pm], dim=-2)
 
 
+def sigma_deltas_lanes_plain(a_t: torch.Tensor) -> torch.Tensor:
+    """(n, n, N) lanes covariance, valid at [c, r ≥ c] → (2n+1, n, N) sigma
+    deltas, in PyTorch (the other half is never read)."""
+    n = a_t.shape[0]
+    keep = torch.triu(torch.ones((n, n), dtype=torch.bool, device=a_t.device))[..., None]
+    cov = torch.where(keep, a_t, a_t.transpose(0, 1)).permute(2, 1, 0)
+    return sigma_deltas_plain(cov).permute(1, 2, 0).contiguous()
+
+
+def sigma_deltas_lanes_cuda(a_t: torch.Tensor) -> torch.Tensor:
+    """K1 on the card in its own layout: (n, n, N) lanes covariance, valid at
+    [c, r ≥ c], → (2n+1, n, N), one thread per instance."""
+    n, nb = a_t.shape[0], a_t.shape[-1]
+    if a_t.ndim != 3 or a_t.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
+        raise ValueError(f"sigma_deltas: need (n, n, N) with n <= {MAX_N}, got {tuple(a_t.shape)}")
+    out_t = torch.empty((2 * n + 1, n, nb), dtype=a_t.dtype, device=a_t.device)
+    scratch = torch.empty((n, n, nb), dtype=a_t.dtype, device=a_t.device)
+    cuda_lib.check_lanes("sigma_deltas", a_t.device, a_t.dtype, a_t=a_t, out_t=out_t, scratch=scratch)
+    cuda_lib.KERNELS["sigma_deltas"].launch(
+        a_t.dtype, a_t.data_ptr(), out_t.data_ptr(), scratch.data_ptr(), n, nb,
+        cuda_lib.stream_ptr(a_t.device),
+    )
+    return out_t
+
+
 def sigma_deltas_cuda(cov: torch.Tensor) -> torch.Tensor:
     """K1 on the card: (N, n, n) → (N, 2n+1, n). The kernel runs in the
-    bank-last (col, row, N) layout, one thread per instance; the layout
-    transposes are plain PyTorch copies around it."""
-    nb, n = cov.shape[0], cov.shape[-1]
-    if cov.ndim != 3 or cov.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
-        raise ValueError(f"sigma_deltas_cuda: need (N, n, n) with n <= {MAX_N}, got {tuple(cov.shape)}")
-    a_t = cov.permute(2, 1, 0).contiguous()
-    out_t = torch.empty((2 * n + 1, n, nb), dtype=cov.dtype, device=cov.device)
-    scratch = torch.empty((n, n, nb), dtype=cov.dtype, device=cov.device)
-    cuda_lib.check_lanes("sigma_deltas", cov.device, cov.dtype, a_t=a_t, out_t=out_t, scratch=scratch)
-    cuda_lib.KERNELS["sigma_deltas"].launch(
-        cov.dtype, a_t.data_ptr(), out_t.data_ptr(), scratch.data_ptr(), n, nb,
-        cuda_lib.stream_ptr(cov.device),
-    )
-    return out_t.permute(2, 0, 1)
+    bank-last (col, row, N) layout; the layout transposes are plain PyTorch
+    copies around it."""
+    if cov.ndim != 3 or cov.shape[1] != cov.shape[2]:
+        raise ValueError(f"sigma_deltas_cuda: need (N, n, n), got {tuple(cov.shape)}")
+    return sigma_deltas_lanes_cuda(cov.permute(2, 1, 0).contiguous()).permute(2, 0, 1)
+
+
+def sigma_deltas_lanes(a_t: torch.Tensor) -> torch.Tensor:
+    """(n, n, N) half-valid lanes covariance → (2n+1, n, N) sigma deltas, as
+    it stands (no permute, no mirror): the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor. The counterpart of JAX
+    ``_sigma_deltas_lanes(lstate.cov_t)``."""
+    if a_t.device.type == "cuda":
+        return sigma_deltas_lanes_cuda(a_t.contiguous())
+    if a_t.device.type == "cpu":
+        return sigma_deltas_lanes_plain(a_t)
+    raise ValueError(f"sigma_deltas_lanes: no path for device {a_t.device}")
 
 
 def sigma_deltas_banked(cov: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,8 @@ from typing import Any, Sequence
 
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = [
     "quat_identity",
     "quat_normalize",
@@ -48,7 +50,7 @@ __all__ = [
 
 
 def quat_identity(dtype=torch.float64, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=resolve_device(device))
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:

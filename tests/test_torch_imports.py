@@ -3,6 +3,7 @@ and kernel wrappers that take the plain route for CPU tensors."""
 
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -13,17 +14,20 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "import slam_uwv_kalman_filters_tpu_torch\n"
-        "from slam_uwv_kalman_filters_tpu_torch.models import pose_fused, pose_ukf, pose_update_fused\n"
+        "from slam_uwv_kalman_filters_tpu_torch.models import fleet_setup, monte_carlo, pose_driver, "
+        "pose_fused, pose_ukf, pose_update_fused\n"
         "from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib, dynamics, geodesy, kernels, "
         "linalg_small, manifolds, ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.parallel import bank\n"
-        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, validation\n"
+        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, device, validation\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
-        "'slam_uwv_kalman_filters_tpu.')) or m == 'slam_uwv_kalman_filters_tpu')\n"
+        "'slam_uwv_kalman_filters_tpu.')) or m in ('slam_uwv_kalman_filters_tpu', 'icra18_mission'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                          cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

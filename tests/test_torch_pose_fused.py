@@ -205,3 +205,120 @@ def test_mission_second_matches_jax_generic_chain():
     out = tf.from_lanes(ls, pt(bstate))
     assert torch.isfinite(out.cov).all()
     assert_tree_close(out, js, rtol=1e-6, atol=1e-9, what="mission")
+
+
+# ---------------------------------------------------------------------------
+# the banked (Monte-Carlo) path: K2's full mode, the generic-h route (K4)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def banked():
+    from torch_parity import banked_params
+
+    state, params = mission_init()
+    rng = np.random.default_rng(60)
+    return random_bank(rng, state, 3), banked_params(rng, params, 3)
+
+
+def test_banked_predict_operands_match_jax(banked):
+    from slam_uwv_kalman_filters_tpu.models import pose_fused as jpf
+
+    _, bparams = banked
+    ref = jpf.banked_predict_operands(jx(bparams), DT, jnp.float64, 3)
+    out = tf.banked_predict_operands(pt(bparams), DT, torch.float64)
+    for name in ref._fields:
+        np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(ref, name)),
+                                   rtol=1e-12, atol=0, err_msg=name)
+    with pytest.raises(ValueError, match="fully banked"):
+        tf.banked_predict_operands(pt(bparams)._replace(inertia_tau=torch.tensor(1.0)), DT, torch.float64)
+
+
+def test_banked_predict_lanes_matches_jax(banked):
+    """K2's full mode (plain) against JAX's per-instance generic predict."""
+    bstate, bparams = banked
+    ref = jax.jit(lambda s, p: jpukf.predict_bank(s, p, DT))(jx(bstate), jx(bparams))
+    ls = tf.predict_lanes(_lanes(bstate), pt(bparams), DT)
+    assert_tree_close(tf.from_lanes(ls, pt(bstate)), ref, **STEP, what="lanes")
+    ops = tf.banked_predict_operands(pt(bparams), DT, torch.float64)
+    ls = tf.predict_lanes(_lanes(bstate), pt(bparams), DT, banked_ops=ops)
+    assert_tree_close(tf.from_lanes(ls, pt(bstate)), ref, **STEP, what="prebuilt operands")
+    assert_tree_close(tf.predict_fused_banked(pt(bstate), pt(bparams), DT), ref, **STEP, what="fused bank")
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as tpukf
+
+    assert_tree_close(tpukf.predict_bank(pt(bstate), pt(bparams), DT), ref, **STEP, what="generic bank")
+
+
+# custom measurement models: name → (JAX h on one state, port h on a bank of
+# sigma points, deps)
+_CUSTOM_H = {
+    1: (lambda s: s.position[2:3], lambda s: s.position[..., 2:3], ("position",)),
+    2: (lambda s: s.position[:2], lambda s: s.position[..., :2], ("position",)),
+    3: (jpukf._h_velocity, lambda s: tu.mf.quat_rotate_inv(s.orientation, s.velocity),
+        ("orientation", "velocity")),
+    6: (lambda s: jnp.concatenate([s.position, jpukf._h_velocity(s)]),
+        lambda s: torch.cat([s.position, tu.mf.quat_rotate_inv(s.orientation, s.velocity)], -1),
+        ("position", "orientation", "velocity")),
+}
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("m", sorted(_CUSTOM_H))
+def test_update_lanes_custom_h_matches_jax(bank, m, gated):
+    """The generic-h route (K1 deltas of the half-valid covariance, h in
+    PyTorch, the K4 tail; plain versions) against JAX's generic update_bank,
+    for m = 1, 2, 3, 6, with and without the χ²-95 gate."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as tpukf
+
+    bstate, params = bank
+    jh, th, deps = _CUSTOM_H[m]
+    rng = np.random.default_rng(70 + m)
+    truth = np.asarray(jax.vmap(jh)(jx(bstate.mu)))
+    z = truth + rng.normal(0.0, 0.1, truth.shape)
+    gate = 2.0 * jukf.D2P95 * m if gated else None
+    if gated:
+        z[0] += 20.0  # instance 0 fails the gate
+    meas_cov = np.eye(m) * 0.01
+    ref_state, ref_info = jax.jit(lambda s, zz, r: jpukf.update_bank(s, jx(params), zz, r, jh, deps, gate))(
+        jx(bstate), jnp.asarray(z), jnp.asarray(meas_cov))
+    ls, info = tu.update_lanes(_lanes(bstate), pt(params), torch.tensor(z), torch.tensor(meas_cov), th, deps, gate)
+    assert_tree_close(tf.from_lanes(ls, pt(bstate)), ref_state, **STEP, what=f"m={m}")
+    np.testing.assert_array_equal(info.accepted.numpy(), np.asarray(ref_info.accepted))
+    np.testing.assert_allclose(info.mahalanobis2.numpy(), np.asarray(ref_info.mahalanobis2), **STEP)
+    np.testing.assert_allclose(info.innovation.numpy(), np.asarray(ref_info.innovation), **STEP)
+    if gated:
+        assert not bool(info.accepted[0]) and bool(info.accepted[1:].all())
+    for out_state, _ in (tu.update_fused_banked(pt(bstate), pt(params), torch.tensor(z), torch.tensor(meas_cov),
+                                                th, deps, gate),
+                         tpukf.update_bank(pt(bstate), pt(params), torch.tensor(z), torch.tensor(meas_cov),
+                                           th, deps, gate)):
+        assert_tree_close(out_state, ref_state, **STEP, what=f"m={m} bank-first")
+
+
+def test_banked_model_body_efforts_matches_jax(banked):
+    """Body efforts with a per-instance vehicle model: the lanes route
+    (generic-h, K4 plain) and the generic bank route against JAX's
+    per-instance update_body_efforts."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as tpukf
+
+    bstate, bparams = banked
+    rng = np.random.default_rng(80)
+    z = rng.normal(0.0, 1.0, (3, 6))
+    meas_cov = np.eye(6)
+    ref_state, ref_info = jax.jit(jax.vmap(lambda s, p, zz: jpukf.update_body_efforts(s, p, zz, jnp.asarray(meas_cov))))(
+        jx(bstate), jx(bparams), jnp.asarray(z))
+    ls, info = tu.update_body_efforts_lanes(_lanes(bstate), pt(bparams), torch.tensor(z), torch.tensor(meas_cov))
+    assert_tree_close(tf.from_lanes(ls, pt(bstate)), ref_state, **STEP, what="lanes")
+    np.testing.assert_allclose(info.mahalanobis2.numpy(), np.asarray(ref_info.mahalanobis2), **STEP)
+    tb, tp = pt(bstate), pt(bparams)
+    out, _ = tpukf.update_body_efforts_bank(tb, tp, torch.tensor(z), torch.tensor(meas_cov),
+                                            tpukf.get_rotation_rate_bank(tb, tp))
+    assert_tree_close(out, ref_state, **STEP, what="generic bank")
+
+
+def test_update_tail_takes_m_up_to_six(bank):
+    bstate, params = bank
+    h = lambda s: torch.cat([s.position, s.velocity, s.acceleration[..., :1]], -1)
+    with pytest.raises(ValueError, match="MAX_TAIL_M"):
+        tu.update_lanes(_lanes(bstate), pt(params), torch.zeros(3, 7, dtype=torch.float64), torch.eye(7), h,
+                        ("position", "velocity", "acceleration"))

@@ -43,9 +43,9 @@ def test_init_from_pose_matches_jax():
         **{k: jnp.asarray(v) for k, v in args.items() if k != "imu_delta_t"}, imu_delta_t=0.01,
     )
     tstate, tparams = tpukf.init_from_pose(
-        config=tcfg(), model_parameters=tdyn.default_uwv_parameters(),
+        config=tcfg(), model_parameters=tdyn.default_uwv_parameters(device="cpu"),
         **{k: torch.tensor(np.asarray(v, np.float64)) for k, v in args.items() if k != "imu_delta_t"},
-        imu_delta_t=0.01,
+        imu_delta_t=0.01, device="cpu",
     )
     assert_tree_close(tstate, jstate, rtol=1e-9, atol=1e-12)
     assert_tree_close(tparams, jparams, rtol=1e-9, atol=1e-12)
@@ -137,3 +137,102 @@ def test_update_matches_jax(bank, name, form):
     )
     if form == "bank" and name in ("xy_position", "water_velocity"):
         assert not bool(out_info.accepted[0]) and bool(out_info.accepted[1:].all())
+
+
+def test_constructors_build_on_the_card_by_default():
+    """``device=None`` means the card; without one a constructor raises and
+    names ``device="cpu"``, which builds on the CPU."""
+    from slam_uwv_kalman_filters_tpu_torch.models import fleet_setup
+    from slam_uwv_kalman_filters_tpu_torch.ops import geodesy as tgeo
+
+    args = (torch.zeros(3, dtype=torch.float64), torch.eye(3, dtype=torch.float64),
+            torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float64), torch.eye(3, dtype=torch.float64), tcfg())
+    ctors = (
+        lambda **kw: tpukf.init_from_pose(*args, tdyn.default_uwv_parameters(**kw), **kw),
+        lambda **kw: tdyn.default_uwv_parameters(**kw),
+        lambda **kw: tgeo.make_projection(0.8, 0.1, **kw),
+        lambda **kw: fleet_setup.build_fleet_setup(minutes=0.01, rate=10.0, **kw),
+    )
+    for ctor in ctors:
+        assert ctor(device="cpu") is not None
+        if torch.cuda.is_available():
+            assert ctor() is not None
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                ctor()
+
+
+@pytest.fixture(scope="module")
+def banked():
+    from torch_parity import banked_params
+
+    state, params = mission_init()
+    rng = np.random.default_rng(12)
+    return random_bank(rng, state, 3), banked_params(rng, params, 3)
+
+
+@pytest.mark.parametrize("name", ["predict", "pressure", "body_efforts"])
+def test_generic_bank_with_banked_params_matches_jax(banked, name):
+    """The generic bank path with a banked (Monte-Carlo) parameter set: each
+    banked leaf broadcasts along the bank, JAX vmaps over it."""
+    bstate, bparams = banked
+    tb, tp = pt(bstate), pt(bparams)
+    if name == "predict":
+        ref = jax.jit(lambda s, p: jpukf.predict_bank(s, p, DT))(jx(bstate), jx(bparams))
+        assert_tree_close(tpukf.predict_bank(tb, tp, DT), ref, **STEP)
+        return
+    rng = np.random.default_rng(13)
+    m = {"pressure": 1, "body_efforts": 6}[name]
+    z = rng.normal(0.0, 1.0, (3, m)) + (101325.0 if name == "pressure" else 0.0)
+    r = np.eye(m) * (2500.0 if name == "pressure" else 1.0)
+    j_one = getattr(jpukf, f"update_{name}")
+    ref, ref_info = jax.jit(jax.vmap(lambda s, p, zz: j_one(s, p, zz, jnp.asarray(r))))(
+        jx(bstate), jx(bparams), jnp.asarray(z))
+    if name == "pressure":
+        out, info = tpukf.update_pressure_bank(tb, tp, torch.tensor(z), torch.tensor(r))
+    else:
+        out, info = tpukf.update_body_efforts_bank(tb, tp, torch.tensor(z), torch.tensor(r),
+                                                   tpukf.get_rotation_rate_bank(tb, tp))
+    assert_tree_close(out, ref, **STEP)
+    np.testing.assert_allclose(info.mahalanobis2.numpy(), np.asarray(ref_info.mahalanobis2), **STEP)
+
+
+@pytest.mark.parametrize("form", ["solo", "bank"])
+def test_geographic_and_delayed_position_match_jax(bank, form):
+    """GPS fixes (projection, lever arm, χ²-95 gate) and the active
+    delayed-position update, solo and bank."""
+    from slam_uwv_kalman_filters_tpu.ops import geodesy as jgeo
+
+    bstate, params = bank
+    rng = np.random.default_rng(14)
+    xy = np.asarray(bstate.mu.position[:, :2]) + rng.normal(0.0, 0.5, (3, 2))
+    xy[0] += 30.0  # instance 0 fails the GPS gate
+    lat, lon = (np.asarray(a) for a in jgeo.nav_to_world(jx(params.projection), jnp.asarray(xy[:, 0]),
+                                                         jnp.asarray(xy[:, 1])))
+    lever = np.array([0.2, -0.1, 0.4])
+    gps_cov, dcov = np.eye(2) * 0.25, np.eye(2) * 0.04
+    dz, dpos = rng.normal(0.0, 0.2, (3, 2)), rng.normal(0.0, 0.2, (3, 2))
+    p = jx(params)
+    if form == "solo":
+        one = jax.tree.map(lambda a: a[1], bstate)
+        j_gps = jax.jit(lambda s: jpukf.update_geographic_position(s, p, lat[1], lon[1], gps_cov, jnp.asarray(lever)))
+        j_del = jax.jit(lambda s: jpukf.update_delayed_position(s, p, dz[1], dcov, dpos[1]))
+        ref_g, ref_d = j_gps(jx(one)), j_del(jx(one))
+        t = pt(one)
+        out_g = tpukf.update_geographic_position(t, pt(params), torch.tensor(lat[1]), torch.tensor(lon[1]),
+                                                 torch.tensor(gps_cov), torch.tensor(lever))
+        out_d = tpukf.update_delayed_position(t, pt(params), torch.tensor(dz[1]), torch.tensor(dcov),
+                                              torch.tensor(dpos[1]))
+    else:
+        j_gps = jax.jit(lambda s: jpukf.update_geographic_position_bank(s, p, lat, lon, gps_cov, jnp.asarray(lever)))
+        j_del = jax.jit(lambda s: jpukf.update_delayed_position_bank(s, p, dz, dcov, dpos))
+        ref_g, ref_d = j_gps(jx(bstate)), j_del(jx(bstate))
+        t = pt(bstate)
+        out_g = tpukf.update_geographic_position_bank(t, pt(params), torch.tensor(lat), torch.tensor(lon),
+                                                      torch.tensor(gps_cov), torch.tensor(lever))
+        out_d = tpukf.update_delayed_position_bank(t, pt(params), torch.tensor(dz), torch.tensor(dcov),
+                                                   torch.tensor(dpos))
+        assert not bool(out_g[1].accepted[0])
+    for (out_s, out_i), (ref_s, ref_i), what in ((out_g, ref_g, "gps"), (out_d, ref_d, "delayed")):
+        assert_tree_close(out_s, ref_s, **STEP, what=what)
+        np.testing.assert_array_equal(out_i.accepted.numpy(), np.asarray(ref_i.accepted))

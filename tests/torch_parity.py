@@ -29,7 +29,7 @@ def jx(tree):
 
 
 def pt(tree):
-    return from_numpy(tree)
+    return from_numpy(tree, device="cpu")
 
 
 def mission_init():
@@ -115,3 +115,26 @@ def _close_rec(port, ref, rtol, atol, what):
             _close_rec(getattr(port, name), getattr(ref, name), rtol, atol, f"{what}.{name}")
         return
     np.testing.assert_allclose(np.asarray(port), np.asarray(ref), rtol=rtol, atol=atol, err_msg=what)
+
+
+def banked_params(rng, params, n):
+    """A fully banked Monte-Carlo draw of ``params`` (numpy leaves, JAX
+    types): every leaf gets the bank axis; process noise, water-velocity
+    scale, atmospheric pressure and vehicle inertia are scaled per instance
+    as in the JAX package's banked lanes test, and the Markov time constants,
+    rest points and projection anchor move too, so every per-instance
+    operand differs."""
+    scales = 1.0 + 0.2 * rng.standard_normal(n).clip(-0.8, 0.8)
+    draw = lambda *shape: 1.0 + 0.1 * rng.standard_normal((n, *shape)).clip(-2, 2)
+    bp = jax.tree.map(lambda x: np.broadcast_to(x, (n, *np.shape(x))).copy(), params)
+    return bp._replace(
+        process_noise=bp.process_noise * scales[:, None, None],
+        water_velocity_scale=bp.water_velocity_scale * scales,
+        atmospheric_pressure=bp.atmospheric_pressure + rng.normal(scale=100.0, size=n),
+        model=bp.model._replace(inertia_matrix=bp.model.inertia_matrix * scales[:, None, None]),
+        gyro_bias_tau=bp.gyro_bias_tau * draw(),
+        lin_damping_tau=bp.lin_damping_tau * draw(),
+        inertia_offset=bp.inertia_offset * draw(3, 3),
+        water_density_offset=bp.water_density_offset * draw(),
+        projection=bp.projection._replace(lat0=bp.projection.lat0 + 0.01 * (draw() - 1.0)),
+    )
