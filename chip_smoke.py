@@ -40,7 +40,28 @@ csrc`` and then, in order:
    lanes path, 1-minute survey at 50 Hz, bank 1024, float32) and holds its
    ATE distribution to the bounds of the JAX package's fleet test;
 9. runs a 1000-tick trajectory at bank 256 from perturbed mission starts:
-   the float32 kernels against the float64 plain path on the card.
+   the float32 kernels against the float64 plain path on the card;
+10. (after the checks of 1) checks the two whole-step kernels against their
+   plain versions at bank 300, float32 and float64: K5 (PoseUKF predict + a
+   chain of in-kernel updates) on the six-model chain with a rejected gate
+   and NaN in the invalid covariance half, and against the K2 → K3 chain on
+   the same operands; K6 (the VelocityUKF step) predict-only, update-only
+   and predict + [DVL, pressure] with a rejected gate;
+11. runs the stepped mission second (bench.py's ``steps=True`` schedule: one
+   K5 launch per tick with acceleration and that tick's DVL, pressure and
+   ADCP, K3 for body efforts at 10 Hz) at the fleet bank, warm then timed
+   (100 K5, 10 K3), holds its final state to the chain's of 3, and checks
+   and times K5 on the operands it gave it;
+12. measures the online latency of bench.py's estimator pattern: one K5
+   [acceleration, velocity] step per tick with a host-fresh DVL z copied to
+   the card and a one-element readback, 400 ticks at bank 1 and 128;
+13. runs the online estimator of examples/online_estimator.py --fused-step
+   on the port (bank 128, 100 Hz, 10 s; events through the port's
+   StreamPacker, forward-filled gyro) and holds its velocity error to the
+   example's 0.02 m/s;
+14. runs the VelocityUKF bank (bench.py's small-filter step: predict + DVL
+   in one K6 launch) at bank 65 536, float32, 30 timed steps, and checks and
+   times K6 on its operands.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
@@ -49,7 +70,8 @@ kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 
     python3 chip_smoke.py                       # the full run
-    python3 chip_smoke.py --bank 2048 --ticks 100 --fleet-bank 64 --fleet-minutes 0.1   # a short one
+    python3 chip_smoke.py --bank 2048 --ticks 100 --fleet-bank 64 --fleet-minutes 0.1 \
+        --velocity-bank 4096 --online-seconds 2                           # a short one
 """
 
 from __future__ import annotations
@@ -70,16 +92,20 @@ TPU_KERNELS = {
     "pose_predict_full": "slam_uwv_kalman_filters_tpu/models/pose_fused.py:206",
     "pose_update_model": "slam_uwv_kalman_filters_tpu/models/pose_update_fused.py:469",
     "pose_update_tail": "slam_uwv_kalman_filters_tpu/models/pose_update_fused.py:74",
+    "pose_step": "slam_uwv_kalman_filters_tpu/models/pose_update_fused.py:626",
+    "velocity_step": "slam_uwv_kalman_filters_tpu/models/velocity_fused.py:306",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
 # bandwidth and float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # launch counts of the two main paths' timed mission seconds
-SHARED_SECOND = {"sigma_deltas": 0, "pose_predict": 100, "pose_predict_full": 0,
-                 "pose_update_model": 118, "pose_update_tail": 0}
-BANKED_SECOND = {"sigma_deltas": 10, "pose_predict": 0, "pose_predict_full": 100,
-                 "pose_update_model": 108, "pose_update_tail": 10}
+_NONE = {"sigma_deltas": 0, "pose_predict": 0, "pose_predict_full": 0, "pose_update_model": 0,
+         "pose_update_tail": 0, "pose_step": 0, "velocity_step": 0}
+SHARED_SECOND = {**_NONE, "pose_predict": 100, "pose_update_model": 118}
+BANKED_SECOND = {**_NONE, "sigma_deltas": 10, "pose_predict_full": 100, "pose_update_model": 108,
+                 "pose_update_tail": 10}
+STEPPED_SECOND = {**_NONE, "pose_step": 100, "pose_update_model": 10}
 # normalized-error limits of a kernel against its plain version on the card:
 # float64 is held near rounding; float32 sums 107 sigma points and runs a
 # 53-column factorization in another order than PyTorch's library calls
@@ -196,6 +222,7 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
     ``counts`` while the block runs; every launch still goes to the kernel."""
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
     from slam_uwv_kalman_filters_tpu_torch.ops import kernels
 
     def recording(fn, key):
@@ -216,6 +243,9 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
          recording(puf._pose_update_lanes, lambda a: f"pose_update_tail[{a[1].shape[1]}]")),
         (kernels, "sigma_deltas_lanes_cuda",
          recording(kernels.sigma_deltas_lanes_cuda, lambda a: "sigma_deltas")),
+        (puf, "_pose_step_lanes", recording(puf._pose_step_lanes, lambda a: f"pose_step[{'+'.join(a[0])}]")),
+        (vf, "_velocity_step_lanes",
+         recording(vf._velocity_step_lanes, lambda a: f"velocity_step[{'+'.join(a[0]) or 'predict'}]")),
     )
 
 
@@ -254,10 +284,13 @@ def _pair(name):
     """(kernel wrapper, plain version) of kernel ``name``."""
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
     from slam_uwv_kalman_filters_tpu_torch.ops import kernels
 
     return {
         "sigma_deltas": (kernels.sigma_deltas_lanes_cuda, kernels.sigma_deltas_lanes_plain),
+        "pose_step": (puf.pose_step_lanes_cuda, puf.pose_step_lanes_plain),
+        "velocity_step": (vf.velocity_step_lanes_cuda, vf.velocity_step_lanes_plain),
         "pose_predict": (pf.predict_lanes_cuda, pf.predict_lanes_plain),
         "pose_predict_full": (pf.predict_lanes_cuda, pf.predict_lanes_plain),
         "pose_update_model": (puf.update_model_lanes_cuda, puf.update_model_lanes_plain),
@@ -280,6 +313,25 @@ def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> No
         dtype = ko[0].dtype
         a, n_err = _cov_err(ko[0], po[0], po[0])
         errs = {"abs": a, "cov": n_err, "mu": _rel(ko[1], po[1])}
+    elif name in ("pose_step", "velocity_step"):
+        dtype = ko[0].dtype
+        if name == "pose_step":  # the updates' prior, the predicted covariance, normalizes
+            from slam_uwv_kalman_filters_tpu_torch.models.pose_fused import predict_lanes_plain
+
+            a, n_err = _cov_err(ko[0], po[0], predict_lanes_plain(*args[1:8])[0])
+            errs = {"abs": a, "cov": n_err, "mu": _rel(ko[1], po[1])}
+        else:
+            errs = {"abs": (ko[0] - po[0]).abs().max().item(), "cov": _rel(ko[0], po[0]), "mu": _rel(ko[1], po[1]),
+                    "trk": _rel(ko[2], po[2])}
+        k_infos, p_infos = ko[-1], po[-1]
+        thrs = [float(s6[0]) for s6 in args[10]] if name == "pose_step" else list(args[10])
+        flips = 0
+        for (km2, kacc, knu), (pm2, pacc, pnu), thr in zip(k_infos, p_infos, thrs):
+            near = (pm2 - thr).abs() <= 1e-3 * abs(thr)
+            flips += int(((kacc != pacc) & ~near).sum().item())
+            errs["m2"] = max(errs.get("m2", 0.0), _rel(km2, pm2))
+            errs["nu"] = max(errs.get("nu", 0.0), _rel(knu, pnu))
+        errs["gate_flips"] = float(flips)
     elif name == "pose_update_tail":
         dtype = ko[0].dtype
         a, n_err = _cov_err(ko[0], po[0], args[5])  # normalized by the prior
@@ -526,8 +578,7 @@ def phase_generic(ls, like, params, meas, captured: dict, counts: dict):
     seconds = time.perf_counter() - t0
     launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
     log(f"generic bank update: bank={nb} float32 seconds={seconds:.6f} launches={launches}")
-    expected = {"sigma_deltas": 1, "pose_predict": 0, "pose_predict_full": 0,
-                "pose_update_model": 0, "pose_update_tail": 1}
+    expected = {**_NONE, "sigma_deltas": 1, "pose_update_tail": 1}
     if launches != expected:
         raise AssertionError(f"generic bank update launched {launches}, expected {expected}")
     for name, t in (("cov", out.cov), ("mu", pf._pack_storage(out.mu)), ("m2", info.mahalanobis2)):
@@ -549,6 +600,11 @@ def _time(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# operations of each in-kernel measurement model per sigma point (estimate)
+_H_OPS = {"velocity": 60, "z_position": 1, "xy_position": 2, "acceleration": 70, "pressure": 70,
+          "water_velocity": 120, "body_efforts": 900}
 
 
 def _bound(name: str, args: tuple):
@@ -575,14 +631,33 @@ def _bound(name: str, args: tuple):
         ops = chol + K * 400 + 2 * K * half  # ~400 ops per point (estimate), ½ΣDDᵀ
     elif name == "pose_update_model":
         model, m, nb = args[0], args[1].shape[0], args[1].shape[-1]
-        h_ops = {"velocity": 60, "z_position": 1, "xy_position": 2, "acceleration": 70, "pressure": 70,
-                 "water_velocity": 120, "body_efforts": 900}[model]  # per point (estimate)
+        h_ops = _H_OPS[model]
         elems = half + 54 + m + m * m + (5 if args[6] is not None else 0) + half + 54 + 2 + m
         ops = chol + K * (h_ops + 60) + K * m * (m + 1) + m * n * (n + 1) + m * m * n + m * n * (n + 1)
-    else:  # pose_update_tail
+    elif name == "pose_update_tail":
         nb, m = args[0].shape[-1], args[1].shape[1]
         elems = K * n + K * m + m + m * m + 54 + half + half + 54 + 2
         ops = K * m * (m + 1) + 2 * K * n * m + m * m * n + m * n * (n + 1) + 2 * m * n
+    elif name == "pose_step":
+        # K2's shared-mode predict, then K3's in-kernel update per model of the
+        # chain; cov, mu, rr and per update z, R in; cov, mu and per update
+        # m2, acc, nu out (no intermediate covariance: it is the function's own)
+        nb = args[1].shape[-1]
+        ms = [(model, z.shape[0]) for model, z in zip(args[0], args[8])]
+        elems = half + 54 + 3 + half + 54 + sum(m + m * m + 2 + m for _, m in ms)
+        ops = chol + K * 400 + 2 * K * half
+        ops += sum(chol + K * (_H_OPS[model] + 60) + K * m * (m + 1) + m * n * (n + 1) + m * m * n + m * n * (n + 1)
+                   for model, m in ms)
+    else:  # velocity_step
+        # per instance: cov (lower half), mu, efforts, gyro, tracker and per
+        # update z, R in; cov, mu, tracker and per update m2, acc, nu out.
+        # Operations (estimate): the 4x4 factor ~30, ~400 per Fossen row
+        # (M·ν, Coriolis, both dampings, M⁻¹·rhs) for 10 rows, ~300 for the
+        # reconstruction, ~60 for the tracker's pose, ~150 per update
+        nb = args[2].shape[-1]
+        ms = [len(z) for z in args[8]]
+        elems = 10 + 4 + 6 + 3 + 13 + 16 + 4 + 13 + sum(m + m * m + 2 + m for m in ms)
+        ops = (30 + 10 * 400 + 300 + 60 if args[1] else 0) + 150 * len(ms)
     esize = next(a for a in args if isinstance(a, torch.Tensor) and a.ndim == 3).element_size()
     t_bytes = elems * nb * esize / HBM_BYTES_PER_S
     t_ops = ops * nb / F32_OPS_PER_S
@@ -592,7 +667,8 @@ def _bound(name: str, args: tuple):
 def _library_ms(name: str, args: tuple):
     """Time of the one PyTorch call that computes the same function, where
     there is one: for K1, ``torch.linalg.cholesky_ex`` of the equilibrated
-    matrix plus the ± stack of its columns. K2, K3 and K4 have none."""
+    matrix plus the ± stack of its columns. K2 … K6 have none: no PyTorch
+    call computes a filter's predict or update."""
     if name != "sigma_deltas":
         return None
     from slam_uwv_kalman_filters_tpu_torch.models.pose_fused import _mirror_half
@@ -843,6 +919,364 @@ def phase_trajectory(device, ticks):
     if worst_pos > limits["position_m"] or worst_ang > limits["orientation_rad"]:
         raise AssertionError("f32 kernel trajectory left the f64 plain trajectory")
 
+# ---------------------------------------------------------------------------
+# the whole-step kernels K5 and K6
+# ---------------------------------------------------------------------------
+
+STEP_VAR = {"velocity": 1e-3, "z_position": 0.01, "xy_position": 0.5, "acceleration": 4e-5, "pressure": 2500.0,
+            "water_velocity": 1e-3}  # mission R of each model
+
+
+def step_operands(ls, params, dtype, device, gen):
+    """K5 operands on lanes state: the six-model chain with random z, the
+    mission R, instance 0 pushed out of the χ²-95 gate of xy_position and
+    water_velocity."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    from slam_uwv_kalman_filters_tpu_torch.ops import ukf
+
+    nb = ls.cov_t.shape[-1]
+    z_ts, r_ts, s6 = [], [], []
+    for model in puf.STEP_MODELS:
+        m = puf.FUSED_MODELS[model]
+        z = torch.randn(m, nb, generator=gen, dtype=torch.float64, device=device)
+        z = z * 50.0 + 101325.0 if model == "pressure" else z
+        thr = ukf.D2P95 if model in ("xy_position", "water_velocity") else None
+        if thr is not None:
+            z[:, 0] += 30.0
+        z_ts.append(z.to(dtype).contiguous())
+        r_ts.append((torch.eye(m, dtype=dtype, device=device) * STEP_VAR[model])[..., None].expand(m, m, nb).contiguous())
+        aux = {"pressure": (101325.0, 0.1, 0.2, -0.3), "water_velocity": (0.3,)}.get(model, ())
+        s6.append(puf._scal_block(thr, aux, dtype, device).T)
+    return (puf.STEP_MODELS, ls.cov_t, ls.mu_t, ls.rr_t, *pf._predict_operands_shared(params, DT, dtype),
+            z_ts, r_ts, torch.cat(s6).contiguous())
+
+
+def velocity_setup(nb: int, dtype, device, gen: torch.Generator | None = None):
+    """bench.py's small-filter configuration (BASELINE configs[0]): the
+    VelocityUKF at rest with thruster efforts [60, 0, 0, 0, 0, 1] on the
+    default vehicle; with ``gen``, moved means, correlated covariances,
+    efforts, gyro rates and tracker orientations per instance."""
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_ukf as vu
+    from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as dyn
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    mu = vu.VelocityState(velocity=t([0.0, 0.0, 0.0]), z_position=t([0.0]))
+    state, params = vu.init(mu, torch.eye(4, dtype=dtype, device=device) * 0.1,
+                            bank.tree_map(lambda a: a.to(dtype), dyn.default_uwv_parameters(device=device)))
+    state = vu.integrate_body_efforts(state, t([60.0, 0.0, 0.0, 0.0, 0.0, 1.0]))
+    bs = bank.replicate(state, nb)
+    if gen is not None:
+        rn = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64, device=device).to(dtype)
+        g = rn(nb, 4, 4)
+        av = 0.05 * rn(nb, 3)
+        bs = bs._replace(
+            mu=vu.VelocityState(0.5 * rn(nb, 3), 2.0 * rn(nb, 1)),
+            cov=0.02 * (g @ g.transpose(1, 2) / 4 + torch.eye(4, dtype=dtype, device=device)),
+            body_efforts=30.0 * rn(nb, 6), angular_velocity=av,
+            model_state=bs.model_state._replace(
+                position=rn(nb, 3), orientation=mf.so3_boxplus(bs.model_state.orientation, 0.3 * rn(nb, 3)),
+                linear_velocity=0.5 * rn(nb, 3), angular_velocity=av),
+        )
+        params = params._replace(model=params.model._replace(weight=t(1000.0), cog=t([0.01, -0.02, 0.05])))
+    return bs, params
+
+
+def phase_checks_steps(device):
+    """K5 and K6 against their plain versions at bank 300, float32 and
+    float64; K5 on the six-model chain (a rejected gate, NaN in the invalid
+    covariance half) and against the K2 → K3 chain on the same operands; K6
+    predict-only, update-only and predict + [DVL, pressure] with a rejected
+    gate."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
+
+    nb = 300
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=device).manual_seed(9)
+        bs, params, _ = mission_setup(nb, dtype, device, gen, spread=1.0)
+        ls = pf.to_lanes(bs)
+        n = pf.TANGENT_DIM
+        upper = torch.tril(torch.ones(n, n, dtype=torch.bool, device=device), -1)[..., None]
+        ls = ls._replace(cov_t=torch.where(upper, float("nan"), ls.cov_t).contiguous())
+        args = step_operands(ls, params, dtype, device, gen)
+        compare("pose_step", "pose_step[six-model chain]", args)
+        models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6 = args
+        k5 = puf.pose_step_lanes_cuda(*args)
+        cov, mu = pf.predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal)
+        for k, model in enumerate(models):
+            cov, mu, *_ = puf.update_model_lanes_cuda(model, z_ts[k], r_ts[k], mu, cov, scal6[k][:, None].contiguous())
+        torch.cuda.synchronize()
+        valid = torch.triu(torch.ones(n, n, dtype=torch.bool, device=device))
+        same = torch.equal(k5[0][valid], cov[valid]) and torch.equal(k5[1], mu)
+        prior = pf.predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal)[0]
+        a, n_err = _cov_err(k5[0], cov, prior)
+        ok = max(n_err, _rel(k5[1], mu)) <= LIMITS[dtype]
+        log(f"check pose_step against the K2 → K3 chain {str(dtype).split('.')[-1]}: max|Δcov|={a:.3e} "
+            f"max|Δmu|={(k5[1] - mu).abs().max().item():.3e} normalized cov={n_err:.3e} bit-identical={same} "
+            f"limit={LIMITS[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K5 disagrees with the K2 → K3 chain")
+        vs, vp = velocity_setup(nb, dtype, device, gen)
+        vl = vf.to_lanes(vs)
+        z = (vl.mu_t[:3] + 0.05).contiguous()
+        z[:, 0] += 3.0  # instance 0 fails the χ²-95 gate
+        r3 = (torch.eye(3, dtype=dtype, device=device) * 0.01)[..., None].expand(3, 3, nb).contiguous()
+        r1 = (torch.eye(1, dtype=dtype, device=device) * 0.04)[..., None].expand(1, 1, nb).contiguous()
+        base = (vl.cov_t, vl.mu_t, vl.eff_t, vl.av_t, vl.trk_t, vf.params_block(vp, 0.05, dtype))
+        for label, head, tail in (("predict", ((), True), ([], [], [])),
+                                  ("update", (("dvl",), False), ([z], [r3], [7.815])),
+                                  ("predict+dvl+pressure", (("dvl", "pressure"), True),
+                                   ([z, (vl.mu_t[3:] + 0.1).contiguous()], [r3, r1], [7.815, -1.0]))):
+            compare("velocity_step", f"velocity_step[{label}]", (*head, *base, *tail))
+
+
+def stepped_tick(ls, params, meas, k: int):
+    """One tick of bench.py's stepped schedule (``steps=True``): one K5 launch
+    with acceleration and the tick's DVL (5 Hz), pressure (2 Hz) and χ²-gated
+    ADCP (1 Hz), then body efforts (10 Hz) through K3."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    from slam_uwv_kalman_filters_tpu_torch.ops import ukf
+
+    ups = [puf.StepUpdate("acceleration", *meas["acc"])]
+    if k % 20 == 19:
+        ups.append(puf.StepUpdate("velocity", *meas["dvl"]))
+    if k % 50 == 49:
+        ups.append(puf.StepUpdate("pressure", *meas["press"], None, (params.atmospheric_pressure, 0.0, 0.0, 0.0)))
+    if k % 100 == 99:
+        ups.append(puf.StepUpdate("water_velocity", *meas["adcp"], ukf.D2P95, (0.5,)))
+    ls, _ = puf.step_lanes(ls, params, DT, ups)
+    if k % 10 == 9:
+        ls, _ = puf.update_body_efforts_lanes(ls, params, *meas["eff"])
+    return ls
+
+
+def phase_stepped_mission(device, nb, chain_ls, captured: dict, counts: dict):
+    """The third main path: the stepped mission second at bank ``nb``
+    (float32, shared parameters), warm (recording K5's operands per chain)
+    then timed between a zeroing and a reading of the counters (100 K5, 10
+    K3). Its state after the two seconds is held to the K2 → K3 chain's after
+    its two (``chain_ls``, the same start and schedule) at the float32 limit."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    dtype = torch.float32
+    bs, params, meas = mission_setup(nb, dtype, device)
+    ls = pf.to_lanes(bs)
+    del bs
+    with capture_operands(captured, counts, keep=lambda key: key.startswith("pose_step")):
+        for k in range(100):
+            ls = stepped_tick(ls, params, meas, k)
+    mission_counts = {k: v for k, v in counts.items() if k.startswith("pose_step")}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k in range(100):
+        ls = stepped_tick(ls, params, meas, k)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    rate = nb * 100 / seconds
+    log(f"stepped mission second: bank={nb} float32 ticks/s={rate:.6e} seconds={seconds:.6f} launches={launches}")
+    if launches != STEPPED_SECOND:
+        raise AssertionError(f"stepped mission second launched {launches}, expected {STEPPED_SECOND}")
+    a, n_err = _cov_err(ls.cov_t, chain_ls.cov_t, chain_ls.cov_t)
+    mu_err = _rel(ls.mu_t, chain_ls.mu_t)
+    ok = max(n_err, mu_err) <= LIMITS[dtype]
+    log(f"check stepped second against the chain's second: max|Δcov|={a:.3e} normalized cov={n_err:.3e} "
+        f"mu={mu_err:.3e} limit={LIMITS[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the stepped mission second left the K2 → K3 chain's state")
+    return launches, rate, mission_counts
+
+
+def phase_online_latency(device, ticks: int = 400):
+    """bench.py's online-latency pattern on the port: per tick a host-made
+    DVL z copied to the card, one K5 step (acceleration, velocity), and a
+    one-element readback that closes the tick; p50 and p99 over ``ticks``
+    ticks at bank 1 and 128, after one warm tick."""
+    import numpy as np
+
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    out, launches = {}, dict.fromkeys(cuda_lib.KERNELS, 0)
+    for nb in (1, 128):
+        bs, params, meas = mission_setup(nb, torch.float32, device)
+        ls = pf.to_lanes(bs)
+        acc = puf.StepUpdate("acceleration", *meas["acc"])
+        r_dvl = meas["dvl"][1]
+        z0 = np.tile(np.array([0.3, 0.0, 0.0], np.float32), (nb, 1))
+
+        def tick(ls, zk):
+            ls = puf.step_lanes(ls, params, DT, [acc, puf.StepUpdate("velocity", zk, r_dvl)])[0]
+            ls.mu_t.reshape(-1)[0].item()  # the readback closes the tick
+            return ls
+
+        ls = tick(ls, torch.from_numpy(z0).to(device))
+        cuda_lib.reset_launch_counts()
+        lat = []
+        for k in range(ticks):
+            z_host = z0 + np.float32(1e-5 * np.sin(k))  # host-fresh measurement
+            t1 = time.perf_counter()
+            ls = tick(ls, torch.from_numpy(z_host).to(device))
+            lat.append(time.perf_counter() - t1)
+        bank_launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+        launches = {k: launches[k] + n for k, n in bank_launches.items()}
+        lat_ms = np.asarray(lat) * 1e3
+        out[nb] = (float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 99)))
+        log(f"online latency: bank={nb} float32 {ticks} ticks p50={out[nb][0]:.4f} ms p99={out[nb][1]:.4f} ms "
+            f"launches={bank_launches}")
+        if bank_launches != {**_NONE, "pose_step": ticks} or not bool(torch.isfinite(ls.cov_t).all()):
+            raise AssertionError("online latency: the ticks launched something other than one K5 each, "
+                                 "or the state went non-finite")
+    return out, launches
+
+
+def phase_online_estimator(device, nb: int = 128, seconds: int = 10, rate: float = 100.0):
+    """examples/online_estimator.py --fused-step on the port: a seeded
+    irregular, shuffled event stream (gyro 100 Hz, DVL 10 Hz, pressure 20 Hz)
+    through the port's StreamPacker one second at a time, forward-filled gyro
+    (set_rotation_rate_lanes), one K5 step per tick that has a DVL or
+    pressure sample and one K2 predict per tick that has neither. Holds the
+    final velocity error to the example's 0.02 m/s; the real-time factor is
+    over the seconds after the first."""
+    import numpy as np
+
+    from slam_uwv_kalman_filters_tpu_torch import runtime
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as dyn
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import default_pose_ukf_config
+
+    gyro, dvl, press = 0, 1, 2
+    rng = np.random.default_rng(0)
+    dt = 1.0 / rate
+    n_ticks = int(rate)
+    cfg = default_pose_ukf_config()
+    g, rho, p_atm = 9.8209, float(cfg.hydrostatics.water_density), float(cfg.hydrostatics.atmospheric_pressure)
+    true_v, depth = np.array([0.4, -0.1, 0.0]), -12.0
+    f64, f32 = torch.float64, torch.float32
+    state, params = pukf.init_from_pose(
+        torch.tensor([0.0, 0.0, depth], dtype=f64), torch.eye(3, dtype=f64) * 0.25,
+        torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=f64), torch.eye(3, dtype=f64) * 1e-4, cfg,
+        dyn.default_uwv_parameters(device=device), imu_delta_t=dt, device=device,
+    )
+    state = pukf.integrate_rotation_rate(state, torch.zeros(3, dtype=f64, device=device))
+    state, params = bank.tree_map(lambda a: a.to(f32), state), bank.tree_map(lambda a: a.to(f32), params)
+    like = bank.replicate(state, nb)
+    ls = pf.to_lanes(like)
+    r_dvl = torch.eye(3, dtype=f32, device=device) * 1e-4
+    r_press = torch.eye(1, dtype=f32, device=device) * 2500.0
+    press_aux = (params.atmospheric_pressure, 0.0, 0.0, 0.0)
+    packer = runtime.StreamPacker(np.asarray([3, 3, 1], np.int32), t0_us=0, dt_us=int(1e6 / rate),
+                                  window_ticks=n_ticks, payload_stride=6)
+    last_gyro = np.zeros(3)
+    total_events = 0
+    steady_wall = first_wall = 0.0
+    cuda_lib.reset_launch_counts()
+    for sec in range(seconds):
+        # one second of irregular sensor traffic, shuffled (the example's make_event_chunk)
+        t0_us, dt_us = int(sec * 1e6), int(1e6 / rate)
+        ts, ids, pay = [], [], []
+        for k in range(n_ticks):
+            t = t0_us + k * dt_us + rng.integers(-dt_us // 4, dt_us // 4)
+            events = [(t, gyro, np.concatenate([rng.normal(scale=1e-4, size=3), np.zeros(3)]))]
+            if k % 10 == 0:
+                events.append((t + 1000, dvl, np.concatenate([true_v + rng.normal(scale=2e-3, size=3), np.zeros(3)])))
+            if k % 5 == 0:
+                events.append((t + 2000, press, np.asarray([p_atm - depth * g * rho + rng.normal(scale=50.0),
+                                                            0, 0, 0, 0, 0])))
+            for e in events:
+                ts.append(e[0])
+                ids.append(e[1])
+                pay.append(e[2])
+        order = rng.permutation(len(ts))
+        ts, ids, pay = np.asarray(ts, np.int64)[order], np.asarray(ids, np.int32)[order], np.stack(pay)[order]
+        total_events += len(ts)
+        t_start = time.perf_counter()
+        packer.push(ts, ids, pay)
+        widx, values, valid = packer.pop(force=True)
+        if widx != sec:
+            raise AssertionError(f"online estimator: window {widx} released for second {sec}")
+        gyro_vals, _ = runtime.forward_fill(values[gyro], valid[gyro], last_gyro)
+        last_gyro = gyro_vals[-1, :3].copy()
+        for k in range(n_ticks):
+            rr = torch.from_numpy(np.tile(gyro_vals[k, :3], (nb, 1))).to(device=device, dtype=f32)
+            ls = pf.set_rotation_rate_lanes(ls, rr)
+            ups = []
+            if valid[dvl, k]:
+                zv = torch.from_numpy(np.tile(values[dvl, k, :3], (nb, 1))).to(device=device, dtype=f32)
+                ups.append(puf.StepUpdate("velocity", zv, r_dvl))
+            if valid[press, k]:
+                zp = torch.from_numpy(np.tile(values[press, k, :1], (nb, 1))).to(device=device, dtype=f32)
+                ups.append(puf.StepUpdate("pressure", zp, r_press, None, press_aux))
+            if ups:
+                ls, _ = puf.step_lanes(ls, params, dt, ups)
+            else:
+                ls = pf.predict_lanes(ls, params, dt)
+        torch.cuda.synchronize()
+        chunk = time.perf_counter() - t_start
+        if sec == 0:
+            first_wall = chunk
+        else:
+            steady_wall += chunk
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    v = pf.from_lanes(ls, like).mu.velocity[0].double().cpu().numpy()
+    err = float(np.abs(v - true_v).max())
+    rt = (seconds - 1) / steady_wall
+    log(f"online estimator: bank={nb} {rate:.0f} Hz {seconds} s float32 native_packer={packer.native} "
+        f"{total_events} events, {packer.dropped} dropped; steady state {rt:.3f}x real time "
+        f"(first second {first_wall:.3f} s); final velocity error {err:.4f} m/s (limit 0.02) launches={launches}")
+    if not err < 0.02:
+        raise AssertionError("online estimator diverged")
+    return {"real_time_factor": rt, "velocity_error_m_s": err}, launches
+
+
+def phase_velocity_bank(device, nb: int, captured: dict, counts: dict, steps: int = 30):
+    """The fourth main path: bench.py's small-filter step (VelocityUKF
+    predict(0.05) + DVL z = [0.3, 0, 0], R = 1e-3·I) as one K6 launch per step
+    on lanes state at bank ``nb``, float32 (``velocity_fused.params_block``
+    keeps the parameter block from step to step): one warm step that records K6's
+    operands, then ``steps`` timed steps between a zeroing and a reading of
+    the counters."""
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    dtype = torch.float32
+    bs, params = velocity_setup(nb, dtype, device)
+    ls = vf.to_lanes(bs)
+    z = torch.tensor([0.3, 0.0, 0.0], dtype=dtype, device=device).expand(nb, 3)
+    r = torch.eye(3, dtype=dtype, device=device) * 1e-3
+    step = lambda ls: vf.step_lanes(ls, params, 0.05, [vf.StepUpdate("dvl", z, r)])[0]
+    with capture_operands(captured, counts, keep=lambda key: key.startswith("velocity_step")):
+        ls = step(ls)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ls = step(ls)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    rate = nb * steps / seconds
+    log(f"VelocityUKF bank: bank={nb} float32 {steps} steps filter-steps/s={rate:.6e} seconds={seconds:.6f} "
+        f"launches={launches}")
+    if launches != {**_NONE, "velocity_step": steps}:
+        raise AssertionError(f"VelocityUKF bank launched {launches}")
+    out = vf.from_lanes(ls, bs)
+    if not (bool(torch.isfinite(out.cov).all()) and bool((torch.diagonal(out.cov, dim1=1, dim2=2) > 0).all())):
+        raise AssertionError("VelocityUKF bank produced a non-finite or non-positive covariance")
+    return launches, rate, {k: steps for k in counts if k.startswith("velocity_step")}
+
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -850,6 +1284,8 @@ def main() -> int:
     parser.add_argument("--ticks", type=int, default=1000, help="trajectory ticks (default 1000)")
     parser.add_argument("--fleet-bank", type=int, default=1024, help="fleet ATE replay bank (default 1024)")
     parser.add_argument("--fleet-minutes", type=float, default=1.0, help="fleet ATE replay minutes (default 1)")
+    parser.add_argument("--velocity-bank", type=int, default=65536, help="VelocityUKF bank (default 65536)")
+    parser.add_argument("--online-seconds", type=int, default=10, help="online estimator seconds (default 10)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -873,30 +1309,54 @@ def main() -> int:
     phase_checks(device)
     phase_mean_accuracy(device)
     phase_checks_banked(device)
+    phase_checks_steps(device)
     captured, counts, stats = {}, {}, {}
     ls, like, params, meas, shared, rate, mission_counts = phase_mission(device, args.bank, captured, counts)
     generic = phase_generic(ls, like, params, meas, captured, counts)
     times = phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.bank * 100 / rate, stats)
     del captured
     idle = phase_profile(ls, params, meas)
+    chain_ls = ls  # the chain's state after its two mission seconds
     del ls, like, params, meas
     captured, counts = {}, {}
     banked, rate_banked, mission_counts = phase_banked_mission(device, args.bank, captured, counts)
     times.update(phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.bank * 100 / rate_banked, stats))
     del captured
     torch.cuda.empty_cache()
+    captured, counts = {}, {}
+    stepped, rate_stepped, mission_counts = phase_stepped_mission(device, args.bank, chain_ls, captured, counts)
+    del chain_ls
+    times.update(phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.bank * 100 / rate_stepped, stats))
+    del captured
+    torch.cuda.empty_cache()
+    latency, latency_launches = phase_online_latency(device)
+    estimator, estimator_launches = phase_online_estimator(device, seconds=args.online_seconds)
+    captured, counts = {}, {}
+    velocity, rate_velocity, mission_counts = phase_velocity_bank(device, args.velocity_bank, captured, counts)
+    times.update(phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.velocity_bank * 30 / rate_velocity,
+                                      stats))
+    del captured
+    torch.cuda.empty_cache()
     fleet = phase_fleet_ate(device, args.fleet_bank, args.fleet_minutes)
     phase_trajectory(device, args.ticks)
 
+    # launches of each main path: the counters zeroed just before it, read just after
+    paths = {
+        "shared_mission_second": shared, "banked_mission_second": banked, "stepped_mission_second": stepped,
+        "online_latency": latency_launches, "online_estimator": estimator_launches,
+        "velocity_bank": velocity,
+    }
+    missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
+    if missing:
+        raise AssertionError(f"no main path launched {missing}")
     table = {"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": cuda_lib.KERNELS[name].source.replace("csrc/", "slam_uwv_kalman_filters_tpu_torch/csrc/"),
             "replaces": TPU_KERNELS[name],
-            "launches": shared[name] + banked[name],
-            "launches_shared_mission_second": shared[name],
-            "launches_banked_mission_second": banked[name],
+            "launches": sum(p[name] for p in paths.values()),
+            **{f"launches_{path}": p[name] for path, p in paths.items()},
             "launches_generic_bank_update": generic[name],
             "max_abs_err": stats[name],
             "ms": times[name][0],
@@ -906,7 +1366,11 @@ def main() -> int:
             "library_ms": times[name][4],
         }
         for name in cuda_lib.KERNELS
-    ], "mission_ticks_per_s": rate, "banked_mission_ticks_per_s": rate_banked, "bank": args.bank,
+    ], "mission_ticks_per_s": rate, "banked_mission_ticks_per_s": rate_banked,
+        "stepped_mission_ticks_per_s": rate_stepped, "bank": args.bank,
+        "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
+        "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
+        "velocity_bank": args.velocity_bank,
         "dtype": "float32", "device_idle_share": idle, "fleet_ate": fleet, "card": smi,
         "wall_s": time.perf_counter() - t_start}
     log(json.dumps(table))

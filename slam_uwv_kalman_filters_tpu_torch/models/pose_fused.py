@@ -58,6 +58,7 @@ import torch
 from ..ops import cuda_lib
 from ..ops import geodesy as geo
 from ..ops.kernels import equilibrated_cholesky
+from ..utils.memo import last_operands
 
 if TYPE_CHECKING:
     from .pose_ukf import PoseUKFParams, PoseUKFState
@@ -410,25 +411,38 @@ def _decay_vectors(params: "PoseUKFParams", dt, dtype):
     return taus.reshape(-1, STORAGE_DIM).T, offs.reshape(-1, STORAGE_DIM).T
 
 
+@last_operands
 def _predict_operands_shared(params: "PoseUKFParams", dt, dtype):
     """(coeff, offs, q0m, scal) kernel operands of the shared-parameter
-    predict, on the parameters' device."""
+    predict, on the parameters' device; kept for the next call with the same
+    parameters and dt (:func:`~..utils.memo.last_operands`). A leaf it reads
+    that carries a bank axis raises ValueError."""
+    banked = ValueError(
+        "the shared-mode predict takes one parameter set, and a leaf it reads carries a bank axis; "
+        "a banked set takes the full mode: predict_lanes with every leaf banked "
+        "(banked_predict_operands), followed by the update chain (update_model_lanes) in place of step_lanes"
+    )
     dev = params.process_noise.device
     dt = torch.full((), float(dt), dtype=dtype, device=dev)
-    coeff, offs = _decay_vectors(params, dt, dtype)
-    q0 = params.process_noise.to(dtype)
-    q0m = dt**2 * q0
-    q0m[3:6, 3:6] = 0.0
-    scal = torch.cat(
-        [
-            dt[None],
-            params.projection.lat0.to(dtype)[None],
-            (1.0 / params.projection.m_rad.to(dtype))[None],
-            dt.new_full((1,), geo.EARTHW),
-            (params.water_velocity_scale.to(dtype) * dt**3)[None],
-            (dt**2 * q0[3:6, 3:6]).reshape(9),
-        ]
-    )[:, None]
+    try:  # a banked leaf does not line up with the shared ones
+        coeff, offs = _decay_vectors(params, dt, dtype)
+        q0 = params.process_noise.to(dtype)
+        q0m = dt**2 * q0
+        q0m[3:6, 3:6] = 0.0
+        scal = torch.cat(
+            [
+                dt[None],
+                params.projection.lat0.to(dtype)[None],
+                (1.0 / params.projection.m_rad.to(dtype))[None],
+                dt.new_full((1,), geo.EARTHW),
+                (params.water_velocity_scale.to(dtype) * dt**3)[None],
+                (dt**2 * q0[3:6, 3:6]).reshape(9),
+            ]
+        )[:, None]
+    except RuntimeError as err:
+        raise banked from err
+    if coeff.shape != (STORAGE_DIM, 1) or offs.shape != (STORAGE_DIM, 1) or q0m.shape != (TANGENT_DIM,) * 2:
+        raise banked
     # the lanes covariance is (col, row, B): q0m is symmetric, so its
     # transpose is itself
     return coeff, offs, q0m[:, :, None].contiguous(), scal

@@ -8,6 +8,12 @@ Two routes, as in JAX:
   ``_factor_innovation``, ``_update_tail_from_sc`` and ``_model_measurement``:
   the whole update in one launch, for the seven measurement models of
   :data:`FUSED_MODELS` (below).
+* **The whole step (K5)** — ``_make_step_kernel`` / ``_pose_step_lanes``:
+  K2's shared-mode predict and then a chain of K3's updates in one launch
+  (:func:`step_lanes`, :func:`step_velocity_lanes`); each update draws its
+  sigma points afresh from the covariance as it then stands, so the chain
+  equals ``predict_lanes`` followed by ``update_model_lanes`` calls. At most
+  :data:`MAX_STEP_UPDATES` updates of the six models of :data:`STEP_MODELS`.
 * **Generic h (K4)** — ``_make_update_kernel`` / ``_update_tail``: K1's sigma
   deltas of the lanes covariance, the measurement model ``h`` evaluated in
   PyTorch on the rows it depends on (:func:`_measurement_stage`), then the
@@ -32,8 +38,9 @@ The in-kernel route:
    manifold correction μ ⊞ W·y and the half-triangle downdate cov − W·Wᵀ.
 
 On a CUDA tensor :func:`update_model_lanes` launches ``csrc/pose_update.cu``
-and :func:`update_lanes` ``csrc/pose_update_tail.cu``; on a CPU tensor they
-run :func:`update_model_lanes_plain` and :func:`update_tail_plain`. Model parameters
+and :func:`update_lanes` ``csrc/pose_update_tail.cu``, :func:`step_lanes`
+``csrc/pose_step.cu``; on a CPU tensor they run :func:`update_model_lanes_plain`,
+:func:`update_tail_plain` and :func:`pose_step_lanes_plain`. Model parameters
 come as 5 aux values, shared (a (6, 1) ``scal`` block: threshold + 5 aux)
 or per instance (a (5, B) ``aux_t``); ``body_efforts`` also reads the
 119-scalar shared vehicle-model block of :func:`_efforts_model_scal`.
@@ -41,7 +48,8 @@ or per instance (a (5, B) ``aux_t``); ``body_efforts`` also reads the
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
+import ctypes
+from typing import NamedTuple, Sequence, TYPE_CHECKING
 
 import torch
 
@@ -63,8 +71,10 @@ from .pose_fused import (
     _rot_fwd,
     _rot_inv,
     _sigma_columns,
+    _predict_operands_shared,
     _unpack_storage,
     from_lanes,
+    predict_lanes_plain,
     to_lanes,
 )
 
@@ -73,7 +83,14 @@ if TYPE_CHECKING:
 
 __all__ = [
     "FUSED_MODELS",
+    "MAX_STEP_UPDATES",
     "MAX_TAIL_M",
+    "STEP_MODELS",
+    "StepUpdate",
+    "pose_step_lanes_cuda",
+    "pose_step_lanes_plain",
+    "step_lanes",
+    "step_velocity_lanes",
     "update_fused_banked",
     "update_lanes",
     "update_tail_cuda",
@@ -104,6 +121,10 @@ _EFF_NSCAL = 119
 # m = 1 … 6 at compile time, csrc/pose_update_tail.cu; the JAX package passes
 # 1, 2, 3 and 6)
 MAX_TAIL_M = 6
+# the whole step K5 (csrc/pose_step.cu): the models it chains (those that
+# read no parameter block) and its compile-time cap on the chain's length
+STEP_MODELS = tuple(m for m in FUSED_MODELS if m != "body_efforts")
+MAX_STEP_UPDATES = 8
 
 
 def _efforts_model_scal(params: "PoseUKFParams", dtype) -> torch.Tensor:
@@ -583,3 +604,160 @@ def update_fused_banked(bstate, params, z, meas_cov, h, deps, gate_threshold=Non
     → unpack."""
     lstate, info = update_lanes(to_lanes(bstate), params, z, meas_cov, h, deps, gate_threshold, h_aux)
     return from_lanes(lstate, bstate), info
+
+
+# ---------------------------------------------------------------------------
+# the whole step: predict + a chain of in-kernel updates (K5)
+# ---------------------------------------------------------------------------
+
+
+class StepUpdate(NamedTuple):
+    """One measurement of a whole-step chain (:func:`step_lanes`). ``model``
+    is one of :data:`STEP_MODELS`; ``aux`` the model's shared scalars, as for
+    :func:`update_model_lanes` (``(p_atm, lx, ly, lz)`` for pressure,
+    ``(cell_weighting,)`` for water_velocity)."""
+
+    model: str
+    z: torch.Tensor  # (B, m)
+    meas_cov: torch.Tensor  # (B, m, m) or (m, m)
+    gate_threshold: float | None = None
+    aux: tuple = ()
+
+
+def _check_chain(models) -> None:
+    if not models:
+        raise ValueError("step_lanes needs at least one measurement update")
+    if len(models) > MAX_STEP_UPDATES:
+        raise ValueError(
+            f"the whole-step kernel chains at most {MAX_STEP_UPDATES} updates "
+            f"(MAX_STEP_UPDATES, its compile-time cap); got {len(models)}: split the chain "
+            "into step_lanes and update_model_lanes calls"
+        )
+    for model in models:
+        if model == "body_efforts":
+            raise ValueError(
+                "body_efforts reads the vehicle-model block and per-instance rates, which the "
+                "whole step does not carry: run it after the step with update_body_efforts_lanes"
+            )
+        if model not in STEP_MODELS:
+            raise ValueError(f"no in-kernel measurement model {model!r}; the step chains {STEP_MODELS}")
+
+
+def pose_step_lanes_plain(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6):
+    """The whole step in PyTorch, operand for operand what K5 computes: K2's
+    plain shared-mode predict (coeff/offs (54, 1), q0m (53, 53, 1), scal
+    (14, 1)), then K3's plain update for each model in turn on the
+    half-valid covariance as it stands, with z_ts[k] (m, B), r_ts[k]
+    (m, m, B) and row k of scal6 (n, 6) [threshold; aux ×5]. Returns
+    (cov_out half-valid, mu_out, [(m2 (1, B), acc (1, B), nu_t (m, B)), …])."""
+    cov, mu = predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal)
+    infos = []
+    for k, model in enumerate(models):
+        cov, mu, m2, acc, nu_t = update_model_lanes_plain(model, z_ts[k], r_ts[k], mu, cov, scal6[k][:, None])
+        infos.append((m2, acc, nu_t))
+    return cov, mu, infos
+
+
+def pose_step_lanes_cuda(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6):
+    """K5 on the card, same operands and outputs as
+    :func:`pose_step_lanes_plain` (the other half of cov_out is left
+    unwritten)."""
+    _check_chain(models)
+    n, nb = TANGENT_DIM, cov_t.shape[-1]
+    dev, dtype = cov_t.device, cov_t.dtype
+    ms = [FUSED_MODELS[model] for model in models]
+    ops = dict(cov_t=cov_t, mu_t=mu_t, rr_t=rr_t, coeff=coeff, offs=offs, q0m=q0m, scal=scal, scal6=scal6)
+    shapes = dict(cov_t=(n, n, nb), mu_t=(STORAGE_DIM, nb), rr_t=(3, nb), coeff=(STORAGE_DIM, 1),
+                  offs=(STORAGE_DIM, 1), q0m=(n, n, 1), scal=(14, 1), scal6=(len(models), 6))
+    for k, m in enumerate(ms):
+        ops[f"z_t{k}"], shapes[f"z_t{k}"] = z_ts[k], (m, nb)
+        ops[f"r_t{k}"], shapes[f"r_t{k}"] = r_ts[k], (m, m, nb)
+    for key, shape in shapes.items():
+        if tuple(ops[key].shape) != shape:
+            raise ValueError(f"pose_step: {key} has shape {tuple(ops[key].shape)}, expected {shape}")
+    empty = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+    cov_out, mu_out = empty(n, n, nb), empty(STORAGE_DIM, nb)
+    y, c = empty(NSIG, STORAGE_DIM, nb), empty(n, n, nb)
+    zs, cw = empty(2, n, max(ms), nb), empty(max(ms), n, nb)
+    infos = [(empty(1, nb), empty(1, nb), empty(m, nb)) for m in ms]
+    cuda_lib.check_lanes("pose_step", dev, dtype, cov_out=cov_out, **ops)
+    ptrs = lambda ts: cuda_lib.host_array(ctypes.c_void_p, [t.data_ptr() for t in ts])
+    chain = (
+        cuda_lib.host_array(ctypes.c_int, [MODEL_ID[model] for model in models]),
+        ptrs(z_ts), ptrs(r_ts), ptrs([i[0] for i in infos]), ptrs([i[1] for i in infos]),
+        ptrs([i[2] for i in infos]),
+    )
+    models_a, z_a, r_a, m2_a, acc_a, nu_a = (ctypes.addressof(a) for a in chain)
+    cuda_lib.KERNELS["pose_step"].launch(
+        dtype, *(t.data_ptr() for t in (cov_t, mu_t, rr_t, coeff, offs, q0m, scal)), len(models),
+        models_a, z_a, r_a, scal6.data_ptr(), m2_a, acc_a, nu_a, cov_out.data_ptr(), mu_out.data_ptr(),
+        y.data_ptr(), c.data_ptr(), zs.data_ptr(), cw.data_ptr(), nb, cuda_lib.stream_ptr(dev),
+    )
+    return cov_out, mu_out, infos
+
+
+def _pose_step_lanes(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6):
+    if cov_t.device.type == "cuda":
+        return pose_step_lanes_cuda(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6)
+    if cov_t.device.type == "cpu":
+        return pose_step_lanes_plain(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6)
+    raise ValueError(f"step_lanes: no path for device {cov_t.device}")
+
+
+def _pad_measurement(z, meas_cov, pad, m, dtype):
+    """Neutral pad-lane measurement (z = 0, R = I) for a lanes state wider
+    than the bank: finite arithmetic in the pad lanes, gate-accepted, and
+    dropped again from the step's infos."""
+    if pad:
+        z = torch.cat([z, torch.zeros((pad, m), dtype=dtype, device=z.device)])
+        eye = torch.eye(m, dtype=dtype, device=z.device).expand(pad, m, m)
+        meas_cov = torch.cat([meas_cov, eye])
+    return z, meas_cov
+
+
+def step_lanes(lstate, params: "PoseUKFParams", dt, updates: Sequence[StepUpdate]):
+    """One whole filter step — predict(dt) and a chain of measurement
+    updates — in one launch of K5 on kernel-layout state, with one shared
+    parameter set. Each update draws its sigma points afresh from the
+    covariance as it then stands, as the reference's ``predictionStep``
+    followed by ``integrateMeasurement`` calls does; the result equals
+    :func:`~.pose_fused.predict_lanes` followed by the matching
+    :func:`update_model_lanes` calls. The bank is ``updates[0].z.shape[0]``;
+    lanes beyond it (a wider state) get the neutral pad measurement. Returns
+    ``(LanesBankState, [UpdateInfo, …])`` in update order."""
+    updates = [u if isinstance(u, StepUpdate) else StepUpdate(*u) for u in updates]
+    _check_chain([u.model for u in updates])
+    dtype, dev = lstate.cov_t.dtype, lstate.cov_t.device
+    nb_pad = lstate.cov_t.shape[-1]
+    nb = updates[0].z.shape[0]
+    coeff, offs, q0m, scal = _predict_operands_shared(params, dt, dtype)
+    z_ts, r_ts = [], []
+    for u in updates:
+        m = FUSED_MODELS[u.model]
+        z = torch.as_tensor(u.z, device=dev).to(dtype)
+        if z.shape[0] != nb:
+            raise ValueError(f"inconsistent bank sizes across step updates: {z.shape[0]} vs {nb}")
+        if z.shape != (nb, m) or nb > nb_pad:
+            raise ValueError(f"{u.model}: z must be (bank={nb} <= {nb_pad} lanes, {m}); got {tuple(z.shape)}")
+        meas_cov = torch.as_tensor(u.meas_cov, device=dev).to(dtype).expand(nb, m, m)
+        z, meas_cov = _pad_measurement(z, meas_cov, nb_pad - nb, m, dtype)
+        z_ts.append(z.T.contiguous())
+        r_ts.append(meas_cov.permute(1, 2, 0).contiguous())
+    scal6 = torch.cat([_scal_block(u.gate_threshold, u.aux, dtype, dev).T for u in updates]).contiguous()
+    cov_t, mu_t, outs = _pose_step_lanes(
+        tuple(u.model for u in updates), lstate.cov_t, lstate.mu_t, lstate.rr_t,
+        coeff, offs, q0m, scal, z_ts, r_ts, scal6,
+    )
+    infos = [
+        ukf.UpdateInfo(mahalanobis2=m2[0, :nb], accepted=acc[0, :nb] > 0.5, innovation=nu_t.T[:nb])
+        for m2, acc, nu_t in outs
+    ]
+    return lstate._replace(cov_t=cov_t, mu_t=mu_t), infos
+
+
+def step_velocity_lanes(lstate, params: "PoseUKFParams", dt, z, meas_cov, gate_threshold=None):
+    """Predict(dt) and the DVL velocity update in one launch (the
+    ``[velocity]`` chain of :func:`step_lanes`). Returns
+    ``(LanesBankState, UpdateInfo)``."""
+    out, infos = step_lanes(lstate, params, dt, [StepUpdate("velocity", z, meas_cov, gate_threshold)])
+    return out, infos[0]

@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "library", "build_info", "reset_launch_counts", "stream_ptr"]
+__all__ = ["Kernel", "KERNELS", "library", "build_info", "host_array", "reset_launch_counts", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -90,7 +90,27 @@ KERNELS = {
         # m, deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr, cov_out, mu_out, m2, acc, w, nb, stream
         (_I32, _P, _P, _P, _P, _P, _P, _F64, _P, _P, _P, _P, _P, _I64, _P),
     ),
+    "pose_step": Kernel(
+        "pose_step", "slam_pose_step", "csrc/pose_step.cu",
+        # cov_t, mu_t, rr_t, coeff, offs, q0m, scal, n_upd, models*, z**, r**, scal6,
+        # m2**, acc**, nu**, cov_out, mu_out, y, c, zs, cw, nb, stream
+        (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I64, _P),
+    ),
+    "velocity_step": Kernel(
+        "velocity_step", "slam_velocity_step", "csrc/velocity_step.cu",
+        # do_predict, cov_t, mu_t, eff_t, av_t, trk_t, scal, n_upd, models*, z**, r**,
+        # thr* (double), m2**, acc**, nu**, cov_out, mu_out, trk_out, nb, stream
+        (_I32, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    ),
 }
+
+
+def host_array(ctype, values) -> ctypes.Array:
+    """A host array of ``values`` for a kernel's by-value chain argument; pass
+    ``ctypes.addressof`` of it and keep it alive until the launch returns
+    (the launcher copies it into the kernel's argument struct)."""
+    return (ctype * max(1, len(values)))(*values)
 
 _STATE: dict = {}
 

@@ -1,9 +1,14 @@
 """Fossen 6-DOF AUV inverse dynamics — the counterpart of
 ``slam_uwv_kalman_filters_tpu/ops/dynamics.py`` (the ``uwv_dynamic_model``
-layer the reference links against), as far as the PoseUKF's model-aided
-effort measurement needs it:
+layer the reference links against): the inverse dynamics of the PoseUKF's
+model-aided effort measurement,
 
-  τ = M·ν̇ + C(ν)ν + D_lin·ν + D_quad·(|ν|∘ν) + g(q).
+  τ = M·ν̇ + C(ν)ν + D_lin·ν + D_quad·(|ν|∘ν) + g(q),
+
+and the forward simulator of the VelocityUKF (``ModelSimulation::sendEffort``):
+ν̇ = M⁻¹(τ − C(ν)ν − D(ν)ν − g(q)), one explicit-Euler step of the velocity
+and, optionally, the semi-implicit kinematic step of the pose
+(:class:`PoseVelocityState`).
 
 Frames: body-fixed 6-DOF ν = [v; ω], NWU navigation frame (z up). Every
 function broadcasts over leading batch axes: ν is ``(..., 6)``, q
@@ -17,15 +22,19 @@ from typing import NamedTuple
 import torch
 
 from ..utils.device import resolve_device
-from .manifolds import _cross, quat_rotate_inv
+from .linalg_small import solve_spd
+from .manifolds import _cross, quat_rotate, quat_rotate_inv, so3_boxplus
 
 __all__ = [
     "UWVParameters",
+    "PoseVelocityState",
     "default_uwv_parameters",
     "coriolis_effort",
     "damping_effort",
     "gravity_buoyancy_effort",
     "calc_efforts",
+    "calc_acceleration",
+    "simulate_effort",
     "embed_xy_yaw",
     "extract_xy_yaw",
 ]
@@ -41,6 +50,17 @@ class UWVParameters(NamedTuple):
     buoyancy: torch.Tensor  # scalar [N]
     cog: torch.Tensor  # (3,) centre of gravity in body frame [m]
     cob: torch.Tensor  # (3,) centre of buoyancy in body frame [m]
+
+
+class PoseVelocityState(NamedTuple):
+    """The simulator state ``uwv_dynamic_model::PoseVelocityState``: position
+    [nav], orientation quaternion [w, x, y, z] (body → nav), linear and
+    angular velocity [body]."""
+
+    position: torch.Tensor  # (..., 3)
+    orientation: torch.Tensor  # (..., 4)
+    linear_velocity: torch.Tensor  # (..., 3)
+    angular_velocity: torch.Tensor  # (..., 3)
 
 
 def default_uwv_parameters(dtype=torch.float64, device=None) -> UWVParameters:
@@ -99,6 +119,40 @@ def calc_efforts(params: UWVParameters, acceleration, velocity, orientation) -> 
         + damping_effort(params, velocity)
         + gravity_buoyancy_effort(params, orientation)
     )
+
+
+def calc_acceleration(params: UWVParameters, efforts, velocity, orientation) -> torch.Tensor:
+    """Forward dynamics ν̇ = M⁻¹(τ − C(ν)ν − D(ν)ν − g(q)), the exact inverse
+    of :func:`calc_efforts`. M = M_RB + M_A is SPD, so the 6×6 solve is the
+    unrolled Cholesky of ``linalg_small.solve_spd``."""
+    rhs = (
+        efforts
+        - coriolis_effort(params.inertia_matrix, velocity)
+        - damping_effort(params, velocity)
+        - gravity_buoyancy_effort(params, orientation)
+    )
+    return solve_spd(params.inertia_matrix, rhs[..., None])[..., 0]
+
+
+def simulate_effort(params: UWVParameters, state: PoseVelocityState, efforts, dt, *,
+                    integrate_pose: bool = True) -> PoseVelocityState:
+    """One Euler step of the forward simulator (``ModelSimulation::
+    sendEffort``, order 1): the 6-DOF velocity by explicit Euler, then, with
+    ``integrate_pose``, the position by the rotated *new* linear velocity and
+    the orientation by the new angular velocity (semi-implicit Euler);
+    without it the pose is kept, as the reference's velocity-only mode."""
+    lin, ang = state.linear_velocity, state.angular_velocity
+    shape = torch.broadcast_shapes(lin.shape, ang.shape)
+    vel6 = torch.cat([lin.expand(shape), ang.expand(shape)], dim=-1)
+    acc6 = calc_acceleration(params, efforts, vel6, state.orientation)
+    lin_vel = lin + dt * acc6[..., :3]
+    ang_vel = ang + dt * acc6[..., 3:]
+    if integrate_pose:
+        position = state.position + dt * quat_rotate(state.orientation, lin_vel)
+        orientation = so3_boxplus(state.orientation, ang_vel, dt)
+    else:
+        position, orientation = state.position, state.orientation
+    return PoseVelocityState(position, orientation, lin_vel, ang_vel)
 
 
 _XY_YAW = torch.tensor([0, 1, 5])

@@ -2,10 +2,12 @@
 
 :func:`from_numpy` turns a NamedTuple tree whose leaves are numpy arrays
 (for instance a JAX package ``PoseUKFState``, ``PoseUKFParams``,
-``PoseInputs`` or ``FleetMissionSpec`` after ``jax.tree.map(np.asarray, …)``)
+``PoseInputs``, ``FleetMissionSpec``, ``VelocityUKFState`` or
+``VelocityUKFParams`` after ``jax.tree.map(np.asarray, …)``)
 into the port's NamedTuple of the same name, field by field; :func:`to_numpy`
 turns a port tree into numpy leaves. ``None`` leaves (absent sensor streams)
-stay ``None``. This is how the parity tests feed both packages identical
+stay ``None``, and strings (a step update's model name) stay strings. This
+is how the parity tests feed both packages identical
 state, parameters and inputs.
 """
 
@@ -22,14 +24,16 @@ __all__ = ["from_numpy", "to_numpy"]
 
 
 def _port_types() -> dict:
-    from ..models import monte_carlo, pose_driver, pose_fused, pose_ukf
+    from ..models import monte_carlo, pose_driver, pose_fused, pose_ukf, velocity_fused, velocity_ukf
     from ..ops import dynamics, geodesy, ukf
 
     types = (
         pose_ukf.PoseState, pose_ukf.PoseUKFParams, pose_ukf.PoseUKFState,
-        dynamics.UWVParameters, geodesy.GeographicProjection, ukf.UpdateInfo,
+        dynamics.UWVParameters, dynamics.PoseVelocityState, geodesy.GeographicProjection, ukf.UpdateInfo,
         pose_fused.LanesBankState, pose_fused.BankedPredictOperands,
         pose_driver.PoseInputs, pose_driver.PoseStepConstants, monte_carlo.FleetMissionSpec,
+        velocity_ukf.VelocityState, velocity_ukf.VelocityUKFParams, velocity_ukf.VelocityUKFState,
+        velocity_fused.VelLanesState,
     )
     return {t.__name__: t for t in types}
 
@@ -39,8 +43,8 @@ def from_numpy(tree: Any, device=None, dtype=torch.float64) -> Any:
     ``device`` (``None``: the card, see ``utils/device.py``); floating leaves
     are cast to ``dtype``, others keep theirs."""
     device = resolve_device(device)
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, str):
+        return tree
     if hasattr(tree, "_fields"):
         cls = _port_types().get(type(tree).__name__)
         if cls is None:
@@ -57,7 +61,7 @@ def from_numpy(tree: Any, device=None, dtype=torch.float64) -> Any:
 
 def to_numpy(tree: Any) -> Any:
     """Port tree → the same NamedTuple types with numpy leaves."""
-    if tree is None or isinstance(tree, (bool, int, float)):
+    if tree is None or isinstance(tree, (bool, int, float, str)):
         return tree
     if hasattr(tree, "_fields"):
         return type(tree)(*(to_numpy(leaf) for leaf in tree))

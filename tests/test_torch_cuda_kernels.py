@@ -5,6 +5,9 @@ without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
+K5 (the whole PoseUKF step) is also held to the K2 → K3 chain it composes,
+and K5's and K6's float32 means to the plain float32 accuracy.
+
 Tolerances are normalized errors (see each test): float64 within 1e-9,
 float32 within 2e-3 (107-point sums and a 53-column factorization rounded in
 another order than PyTorch's library calls).
@@ -375,3 +378,152 @@ def test_wrapper_launches_and_counts(device):
     torch.cuda.synchronize()
     assert counter.launches == before + 1
     assert torch.isfinite(pf.from_lanes(out, bs).cov).all()
+
+
+# ---------------------------------------------------------------------------
+# K5 (the whole PoseUKF step) and K6 (the whole VelocityUKF step)
+# ---------------------------------------------------------------------------
+
+
+def _rel(a, b):
+    return ((a - b).abs() / (1 + b.abs())).max().item()
+
+
+def _step_operands(device, dtype, models=puf.STEP_MODELS, z0=None):
+    """K5 operands: the six-model chain on mission states, NaN in the
+    invalid covariance half, instance 0 pushed out of the χ²-95 gate of
+    xy_position and water_velocity. ``z0`` sets every z to a constant."""
+    bs, params = _bank(device, dtype)
+    ls = pf.to_lanes(bs)
+    gen = torch.Generator(device=device).manual_seed(12)
+    z_ts, r_ts, s6 = [], [], []
+    var = {"velocity": 1e-3, "z_position": 0.01, "xy_position": 0.5, "acceleration": 4e-5,
+           "pressure": 2500.0, "water_velocity": 1e-3}
+    for model in models:
+        m = puf.FUSED_MODELS[model]
+        if z0 is None:
+            z = torch.randn(m, NB, generator=gen, dtype=torch.float64, device=device)
+            z = z * 50.0 + 101325.0 if model == "pressure" else z
+        else:
+            z = torch.full((m, NB), z0[model], dtype=torch.float64, device=device)
+        thr = 5.991 if model in ("xy_position", "water_velocity") else None
+        if thr is not None:
+            z[:, 0] += 30.0
+        z_ts.append(z.to(dtype).contiguous())
+        r_ts.append((torch.eye(m, dtype=dtype, device=device) * var[model])[..., None].expand(m, m, NB).contiguous())
+        aux = {"pressure": (101325.0, 0.1, 0.2, -0.3), "water_velocity": (0.3,)}.get(model, ())
+        s6.append(puf._scal_block(thr, aux, dtype, device).T)
+    return (tuple(models), _nan_upper(ls.cov_t), ls.mu_t, ls.rr_t, *pf._predict_operands_shared(params, 0.01, dtype),
+            z_ts, r_ts, torch.cat(s6).contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pose_step_kernel_matches_plain(device, dtype):
+    args = _step_operands(device, dtype)
+    ko, po = puf.pose_step_lanes_cuda(*args), puf.pose_step_lanes_plain(*args)
+    prior = pf.predict_lanes_plain(*args[1:8])[0]  # the updates' prior normalizes, as for K3
+    assert _cov_err(ko[0], po[0], prior) <= LIMIT[dtype]
+    assert _rel(ko[1], po[1]) <= LIMIT[dtype]
+    for (km2, kacc, knu), (pm2, pacc, pnu) in zip(ko[2], po[2]):
+        assert torch.equal(kacc, pacc)
+        assert max(_rel(km2, pm2), _rel(knu, pnu)) <= LIMIT[dtype]
+    assert ko[2][2][1][0, 0] == 0.0 and ko[2][5][1][0, 0] == 0.0  # the gated instance 0 rejected
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pose_step_kernel_matches_k2_k3_chain(device, dtype):
+    """K5 against K2 followed by one K3 launch per update, on the same
+    operands (the same two bodies, composed in one launch)."""
+    models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6 = _step_operands(device, dtype)
+    ko = puf.pose_step_lanes_cuda(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6)
+    cov, mu = pf.predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal)
+    for k, model in enumerate(models):
+        cov, mu, m2, acc, nu = puf.update_model_lanes_cuda(model, z_ts[k], r_ts[k], mu, cov, scal6[k][:, None].contiguous())
+        assert torch.equal(ko[2][k][1], acc)
+    prior = pf.predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal)[0]
+    assert _cov_err(ko[0], cov, prior) <= LIMIT[dtype]
+    assert _rel(ko[1], mu) <= LIMIT[dtype]
+
+
+def _velocity_operands(device, dtype):
+    """K6 operands on a bank away from rest (efforts, gyro, tracker
+    orientations, a vehicle with live restoring terms); a DVL z that instance
+    0 fails the χ²-95 gate with, a depth z accepted."""
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_ukf as vu
+
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
+    g = rng.normal(size=(NB, 4, 4))
+    q = rng.normal(size=(NB, 4)) * [1.0, 0.2, 0.2, 0.4] + [2.0, 0.0, 0.0, 0.0]
+    st = vu.VelocityUKFState(
+        vu.VelocityState(t(rng.normal(0.0, 0.5, (NB, 3))), t(rng.normal(0.0, 2.0, (NB, 1)))),
+        t(0.02 * (g @ np.swapaxes(g, 1, 2) / 4 + np.eye(4))), t(rng.normal(0.0, 30.0, (NB, 6))),
+        t(rng.normal(0.0, 0.05, (NB, 3))),
+        dyn.PoseVelocityState(t(rng.normal(size=(NB, 3))), t(q / np.linalg.norm(q, axis=1, keepdims=True)),
+                              t(rng.normal(0.0, 0.5, (NB, 3))), t(rng.normal(0.0, 0.05, (NB, 3)))),
+    )
+    model = bank.tree_map(lambda a: a.to(dtype), dyn.default_uwv_parameters(device=device))
+    model = model._replace(weight=t(1000.0), cog=t([0.01, -0.02, 0.05]), cob=t([0.0, 0.01, -0.03]))
+    params = vu.VelocityUKFParams(model, vu.default_process_noise(dtype, device))
+    ls = vf.to_lanes(st)
+    z = (ls.mu_t[:3] + 0.05).contiguous()
+    z[:, 0] += 3.0
+    r3 = (torch.eye(3, dtype=dtype, device=device) * 0.01)[..., None].expand(3, 3, NB).contiguous()
+    r1 = (torch.eye(1, dtype=dtype, device=device) * 0.04)[..., None].expand(1, 1, NB).contiguous()
+    base = (ls.cov_t, ls.mu_t, ls.eff_t, ls.av_t, ls.trk_t, vf.params_block(params, 0.05, dtype))
+    return {
+        "predict": ((), True, *base, [], [], []),
+        "update": (("dvl",), False, *base, [z], [r3], [7.815]),
+        "predict+dvl+pressure": (("dvl", "pressure"), True, *base, [z, (ls.mu_t[3:] + 0.1).contiguous()], [r3, r1],
+                                 [7.815, -1.0]),
+    }
+
+
+@pytest.mark.parametrize("case", ["predict", "update", "predict+dvl+pressure"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_velocity_step_kernel_matches_plain(device, dtype, case):
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
+
+    args = _velocity_operands(device, dtype)[case]
+    ko, po = vf.velocity_step_lanes_cuda(*args), vf.velocity_step_lanes_plain(*args)
+    for k, p in zip(ko[:3], po[:3]):
+        assert _rel(k, p) <= LIMIT[dtype]
+    for (km2, kacc, knu), (pm2, pacc, pnu) in zip(ko[3], po[3]):
+        assert torch.equal(kacc, pacc)
+        assert max(_rel(km2, pm2), _rel(knu, pnu)) <= LIMIT[dtype]
+    if args[0]:
+        assert ko[3][0][1][0, 0] == 0.0 and bool((ko[3][0][1][0, 1:] == 1.0).all())
+
+
+def test_float32_step_kernel_means_are_as_accurate_as_plain(device):
+    """K5's innovations (the predicted and updated means enter them) on an
+    [acceleration, pressure] chain at z ≈ g and z ≈ 1e5 Pa, and K6's
+    predicted mean and DVL innovation, against float64 plain: no worse than
+    the float32 plain version (×2, plus 2 ulp of the value), the criterion of
+    the K2 / K3 test above."""
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
+
+    ulp = torch.finfo(torch.float32).eps
+
+    def assert_as_accurate(k32, p32, p64):
+        err_k = (k32.double() - p64).abs().amax(-1)
+        err_p = (p32.double() - p64).abs().amax(-1)
+        assert (err_k <= 2 * err_p + 2 * ulp * p64.abs().amax(-1)).all(), (err_k, err_p)
+
+    z0 = {"acceleration": 9.8, "pressure": 101325.0}
+    a64 = _step_operands(device, torch.float64, ("acceleration", "pressure"), z0)
+    a32 = _step_operands(device, torch.float32, ("acceleration", "pressure"), z0)
+    n64, p32, k32 = (puf.pose_step_lanes_plain(*a64)[2], puf.pose_step_lanes_plain(*a32)[2],
+                     puf.pose_step_lanes_cuda(*a32)[2])
+    for k in range(2):
+        assert_as_accurate(k32[k][2], p32[k][2], n64[k][2])
+    v64 = _velocity_operands(device, torch.float64)["predict+dvl+pressure"]
+    v32 = _velocity_operands(device, torch.float32)["predict+dvl+pressure"]
+    o64, o32, ok32 = (vf.velocity_step_lanes_plain(*v64), vf.velocity_step_lanes_plain(*v32),
+                      vf.velocity_step_lanes_cuda(*v32))
+    assert_as_accurate(ok32[3][0][2], o32[3][0][2], o64[3][0][2])
+    pred = [fn((), True, *v[2:8], [], [], []) for fn, v in ((vf.velocity_step_lanes_plain, v64),
+                                                                   (vf.velocity_step_lanes_plain, v32),
+                                                                   (vf.velocity_step_lanes_cuda, v32))]
+    assert_as_accurate(pred[2][1], pred[1][1], pred[0][1])

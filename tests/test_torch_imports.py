@@ -15,11 +15,12 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import slam_uwv_kalman_filters_tpu_torch\n"
         "from slam_uwv_kalman_filters_tpu_torch.models import fleet_setup, monte_carlo, pose_driver, "
-        "pose_fused, pose_ukf, pose_update_fused\n"
+        "pose_fused, pose_ukf, pose_update_fused, velocity_fused, velocity_ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib, dynamics, geodesy, kernels, "
         "linalg_small, manifolds, ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.parallel import bank\n"
-        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, device, validation\n"
+        "from slam_uwv_kalman_filters_tpu_torch import runtime\n"
+        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, device, memo, validation\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'slam_uwv_kalman_filters_tpu.')) or m in ('slam_uwv_kalman_filters_tpu', 'icra18_mission'))\n"

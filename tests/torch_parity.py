@@ -138,3 +138,18 @@ def banked_params(rng, params, n):
         water_density_offset=bp.water_density_offset * draw(),
         projection=bp.projection._replace(lat0=bp.projection.lat0 + 0.01 * (draw() - 1.0)),
     )
+
+
+def _leaf(v):
+    if v is None or isinstance(v, (str, bool, int, float)):
+        return v
+    if isinstance(v, tuple):
+        return tuple(_leaf(x) for x in v)
+    return from_numpy(np.asarray(v), device="cpu")
+
+
+def step_updates(updates, cls):
+    """A JAX package StepUpdate list (pose or velocity) → the port's ``cls``
+    StepUpdates: array fields to float64 CPU tensors, names, thresholds and
+    Python scalars as they are."""
+    return [cls(*(_leaf(v) for v in u)) for u in updates]
