@@ -61,17 +61,30 @@ csrc`` and then, in order:
    example's 0.02 m/s;
 14. runs the VelocityUKF bank (bench.py's small-filter step: predict + DVL
    in one K6 launch) at bank 65 536, float32, 30 timed steps, and checks and
-   times K6 on its operands.
+   times K6 on its operands;
+15. (after the checks of 10) checks K7, the BottomUKF step, predict alone and
+   predict + [range, normal] with a χ²-rejected instance, and K8, the banked
+   SPD solve, on random and ill-conditioned 53x53 systems with 53
+   right-hand sides, at bank 300, float32 and float64;
+16. runs the BottomUKF bank (bench.py's second small filter: predict + one
+   range beam in one K7 launch) at bank 65 536, float32, 30 timed steps, and
+   checks and times K7 on its operands;
+17. runs the survey smoother: the fleet survey at 50 Hz for one minute over
+   256 trajectories in float32, forward (K2, K3) storing every posterior on
+   the card, backward (K1, K8) each tick; holds the smoothed covariance
+   trace to the filtered one and prints both passes' times and the filtered
+   and smoothed ATE; then checks and times K1 and K8 on the backward
+   pass's operands, K8 beside ``cholesky_ex`` + ``cholesky_solve``.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
-share, the fleet ATE, the trajectory differences and a JSON object with the
-kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
+share, the fleet ATE, the trajectory differences, the BottomUKF rate, the
+smoother's times and ATE and a JSON object with the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 
     python3 chip_smoke.py                       # the full run
     python3 chip_smoke.py --bank 2048 --ticks 100 --fleet-bank 64 --fleet-minutes 0.1 \
-        --velocity-bank 4096 --online-seconds 2                           # a short one
+        --velocity-bank 4096 --online-seconds 2 --smoother-seconds 4      # a short one
 """
 
 from __future__ import annotations
@@ -94,6 +107,8 @@ TPU_KERNELS = {
     "pose_update_tail": "slam_uwv_kalman_filters_tpu/models/pose_update_fused.py:74",
     "pose_step": "slam_uwv_kalman_filters_tpu/models/pose_update_fused.py:626",
     "velocity_step": "slam_uwv_kalman_filters_tpu/models/velocity_fused.py:306",
+    "bottom_step": "slam_uwv_kalman_filters_tpu/models/bottom_fused.py:233",
+    "solve_spd": "slam_uwv_kalman_filters_tpu/ops/kernels.py:391",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
 # bandwidth and float32 outside the tensor cores
@@ -101,7 +116,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # launch counts of the two main paths' timed mission seconds
 _NONE = {"sigma_deltas": 0, "pose_predict": 0, "pose_predict_full": 0, "pose_update_model": 0,
-         "pose_update_tail": 0, "pose_step": 0, "velocity_step": 0}
+         "pose_update_tail": 0, "pose_step": 0, "velocity_step": 0, "bottom_step": 0, "solve_spd": 0}
 SHARED_SECOND = {**_NONE, "pose_predict": 100, "pose_update_model": 118}
 BANKED_SECOND = {**_NONE, "sigma_deltas": 10, "pose_predict_full": 100, "pose_update_model": 108,
                  "pose_update_tail": 10}
@@ -110,6 +125,10 @@ STEPPED_SECOND = {**_NONE, "pose_step": 100, "pose_update_model": 10}
 # float64 is held near rounding; float32 sums 107 sigma points and runs a
 # 53-column factorization in another order than PyTorch's library calls
 LIMITS = {torch.float64: 1e-9, torch.float32: 2e-3}
+# bench.py's small-filter bank (the BottomUKF bank) and the survey smoother's
+# fleet of trajectories
+BOTTOM_BANK = 65536
+SMOOTHER_BANK = 256
 
 
 def log(msg: str) -> None:
@@ -220,6 +239,7 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
     """Record the operands of each kernel's last launch (K3's per model, K4's
     per m) in ``store`` where ``keep(key)``, and count launches per key in
     ``counts`` while the block runs; every launch still goes to the kernel."""
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
@@ -246,6 +266,9 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
         (puf, "_pose_step_lanes", recording(puf._pose_step_lanes, lambda a: f"pose_step[{'+'.join(a[0])}]")),
         (vf, "_velocity_step_lanes",
          recording(vf._velocity_step_lanes, lambda a: f"velocity_step[{'+'.join(a[0]) or 'predict'}]")),
+        (bf, "_bottom_step_lanes",
+         recording(bf._bottom_step_lanes, lambda a: f"bottom_step[{'+'.join(('predict',) * a[1] + a[0])}]")),
+        (kernels, "solve_spd_lanes_cuda", recording(kernels.solve_spd_lanes_cuda, lambda a: "solve_spd")),
     )
 
 
@@ -282,6 +305,7 @@ def _rel(out, ref):
 
 def _pair(name):
     """(kernel wrapper, plain version) of kernel ``name``."""
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
@@ -295,6 +319,8 @@ def _pair(name):
         "pose_predict_full": (pf.predict_lanes_cuda, pf.predict_lanes_plain),
         "pose_update_model": (puf.update_model_lanes_cuda, puf.update_model_lanes_plain),
         "pose_update_tail": (puf.update_tail_cuda, puf.update_tail_plain),
+        "bottom_step": (bf.bottom_step_lanes_cuda, bf.bottom_step_lanes_plain),
+        "solve_spd": (kernels.solve_spd_lanes_cuda, kernels.solve_spd_lanes_plain),
     }[name]
 
 
@@ -309,6 +335,25 @@ def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> No
         dtype = ko.dtype
         scale = po.abs().amax(dim=(0, 1), keepdim=True)
         errs = {"abs": (ko - po).abs().max().item(), "rel": ((ko - po).abs() / scale).max().item()}
+    elif name == "solve_spd":
+        # D·X against its largest entry per column and instance, D = √diag A:
+        # the equilibrated solve is accurate relative to that
+        dtype = ko.dtype
+        d = torch.sqrt(torch.diagonal(args[0], dim1=0, dim2=1).T)[:, None, :]
+        scale = (po * d).abs().amax(dim=0, keepdim=True)
+        errs = {"abs": (ko - po).abs().max().item(), "rel": ((ko - po).abs() * d / scale).max().item(),
+                "finite": 0.0 if bool(torch.isfinite(ko).all()) else float("inf")}
+    elif name == "bottom_step":
+        dtype = ko[0].dtype
+        errs = {"abs": max((ko[0] - po[0]).abs().max().item(), (ko[1] - po[1]).abs().max().item()),
+                "cov": _rel(ko[0], po[0]), "mu": _rel(ko[1], po[1])}
+        flips = 0
+        for (km2, kacc, knu), (pm2, pacc, pnu), thr in zip(ko[2], po[2], args[11]):
+            near = (pm2 - thr).abs() <= 1e-3 * abs(thr)
+            flips += int(((kacc != pacc) & ~near).sum().item())
+            errs["m2"] = max(errs.get("m2", 0.0), _rel(km2, pm2))
+            errs["nu"] = max(errs.get("nu", 0.0), _rel(knu, pnu))
+        errs["gate_flips"] = float(flips)
     elif name in ("pose_predict", "pose_predict_full"):
         dtype = ko[0].dtype
         a, n_err = _cov_err(ko[0], po[0], po[0])
@@ -648,6 +693,27 @@ def _bound(name: str, args: tuple):
         ops = chol + K * 400 + 2 * K * half
         ops += sum(chol + K * (_H_OPS[model] + 60) + K * m * (m + 1) + m * n * (n + 1) + m * m * n + m * n * (n + 1)
                    for model, m in ms)
+    elif name == "bottom_step":
+        # per instance: cov (lower half), mu, velocity and per update z, R
+        # (and a range's beam direction and origin) in; cov, mu and per update
+        # m2, acc, nu out. Operations (estimate): the 3x3 factor ~20, the 7
+        # sigma normals ~40 each (sin, cos, sqrt), one 4-iteration Karcher
+        # mean ~1600 (7 log maps with atan2 ~50, an exp map, a basis per
+        # iteration), 7 log maps ~350 and ~100 of sums for a predict; per
+        # update the redraw ~300, then the range's 7 ray/plane ratios ~90, or
+        # the normal's Karcher mean, 8 log maps ~2000, and the tail ~150
+        nb = args[2].shape[-1]
+        ups = args[0]
+        elems = 6 + 4 + 3 + 9 + 4 + sum((1 + 1 + 6 if u == "range" else 3 + 4) + 2 + (1 if u == "range" else 2)
+                                        for u in ups)
+        ops = (20 + 280 + 1600 + 350 + 100 if args[1] else 0)
+        ops += sum(300 + 150 + (90 if u == "range" else 2000) for u in ups)
+    elif name == "solve_spd":
+        # the system's valid half and the right-hand sides in, the solution
+        # out; equilibration 2n², the factor n³/3, two substitutions 2n²k
+        n, k, nb = args[1].shape
+        elems = n * (n + 1) // 2 + 2 * n * k
+        ops = 2 * n * n + n**3 / 3 + 2 * n * n * k
     else:  # velocity_step
         # per instance: cov (lower half), mu, efforts, gyro, tracker and per
         # update z, R in; cov, mu, tracker and per update m2, acc, nu out.
@@ -664,11 +730,34 @@ def _bound(name: str, args: tuple):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _median_ms(label: str, fn, reps: int, rounds: int = 5) -> float:
+    """Median of ``rounds`` timings of ``reps`` calls each, after three warm
+    calls; logs the spread beside it."""
+    for _ in range(3):
+        fn()
+    ms = sorted(_time(fn, reps) for _ in range(rounds))
+    log(f"library {label}: median {ms[rounds // 2]:.3f} ms of {rounds} rounds of {reps} calls "
+        f"(min {ms[0]:.3f}, max {ms[-1]:.3f})")
+    return ms[rounds // 2]
+
+
 def _library_ms(name: str, args: tuple):
-    """Time of the one PyTorch call that computes the same function, where
-    there is one: for K1, ``torch.linalg.cholesky_ex`` of the equilibrated
-    matrix plus the ± stack of its columns. K2 … K6 have none: no PyTorch
-    call computes a filter's predict or update."""
+    """Time of the PyTorch calls that compute the same function, where there
+    are: for K1, ``torch.linalg.cholesky_ex`` of the equilibrated matrix plus
+    the ± stack of its columns; for K8, ``torch.linalg.cholesky_ex`` and
+    ``torch.cholesky_solve`` on the same equilibrated operands (D⁻¹AD⁻¹,
+    D⁻¹B). The median of several warm rounds: a batched factorization's
+    first calls include the library's own set-up. K2 … K7 have none: no
+    PyTorch call computes a filter's predict or update."""
+    if name == "solve_spd":
+        from slam_uwv_kalman_filters_tpu_torch.models.pose_fused import _mirror_half
+
+        spd = _mirror_half(args[0]).permute(2, 1, 0)
+        d = torch.sqrt(torch.clamp(torch.diagonal(spd, dim1=-2, dim2=-1), min=torch.finfo(spd.dtype).tiny))
+        corr = (spd / (d[..., :, None] * d[..., None, :])).contiguous()
+        rhs = (args[1].permute(2, 0, 1) / d[..., :, None]).contiguous()
+        del spd
+        return _median_ms("solve_spd", lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky_ex(corr)[0]), 10)
     if name != "sigma_deltas":
         return None
     from slam_uwv_kalman_filters_tpu_torch.models.pose_fused import _mirror_half
@@ -682,18 +771,20 @@ def _library_ms(name: str, args: tuple):
         cols = torch.linalg.cholesky_ex(corr)[0].transpose(-1, -2) * d[:, None, :]
         return torch.cat([torch.zeros_like(cols[:, :1]), torch.stack([cols, -cols], 2).flatten(1, 2)], 1)
 
-    ms = _time(library, 3)
+    ms = _median_ms("sigma_deltas", library, 3)
     del corr
     return ms
 
 
-def phase_mission_shapes(captured: dict, counts: dict, mission_counts: dict, mission_ms: float, stats: dict):
-    """Each kernel against its plain version on the operands a main path
-    gave it (K3 once per model, K4 once per m), at LIMITS; then both timed
-    in turns plain, kernel, kernel, plain, and the library call where there
-    is one. A kernel's time in the table is the launch-weighted mean over
-    its keys. Returns {kernel: (ms, plain_ms, bound_ms, bound_by,
-    library_ms)}."""
+def phase_mission_shapes(path: str, captured: dict, counts: dict, mission_counts: dict, mission_ms: float,
+                         stats: dict):
+    """Each kernel against its plain version on the operands that main path
+    ``path`` gave it (K3 once per model, K4 once per m), at LIMITS; then both
+    timed in turns plain, kernel, kernel, plain, and the library call where
+    there is one. A kernel's time in the table is the launch-weighted mean
+    over its keys; ``mission_counts`` are the launches of each key in the
+    path's timed run of ``mission_ms``. Returns {kernel: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)}."""
     per_key = {}
     for key, args in captured.items():
         name = key.split("[")[0]
@@ -716,7 +807,7 @@ def phase_mission_shapes(captured: dict, counts: dict, mission_counts: dict, mis
         by = max(keys, key=lambda k: counts[k] * per_key[k][2])
         times[name] = (mean(0), mean(1), mean(2), per_key[by][3], per_key[keys[0]][4])
     kernel_ms = sum(mission_counts[k] * per_key[k][0] for k in mission_counts if k in per_key)
-    log(f"kernels of one mission second {kernel_ms:.1f} ms of {mission_ms:.1f} ms measured "
+    log(f"kernels of the {path} {kernel_ms:.1f} ms of {mission_ms:.1f} ms measured "
         f"({100 * (1 - kernel_ms / mission_ms):.1f}% outside the recorded kernels)")
     return times
 
@@ -1278,6 +1369,241 @@ def phase_velocity_bank(device, nb: int, captured: dict, counts: dict, steps: in
 
 
 
+# ---------------------------------------------------------------------------
+# K7 (the BottomUKF step) and K8 (the banked SPD solve) and their paths
+# ---------------------------------------------------------------------------
+
+
+def bottom_check_operands(nb: int, dtype, device, gen: torch.Generator):
+    """K7 operands at bank ``nb``: correlated covariances, velocities, normals
+    tilted at random plus one 1e-3 off the pole and two at x₂ = ±1e-3 (where
+    the basis changes sides), a shared symmetric Q; a range (per-instance
+    beams and origins) that instance 3 fails at χ²(1) 3.841 by 500 m, and an
+    S² normal observation. Returns {case: args}."""
+    f64 = torch.float64
+    rn = lambda *shape: torch.randn(*shape, generator=gen, dtype=f64, device=device)
+    unit = lambda v: v / v.norm(dim=-1, keepdim=True)
+    normals = unit(0.2 * rn(nb, 3) + torch.tensor([0.0, 0.0, 1.0], dtype=f64, device=device))
+    normals[0] = unit(torch.tensor([1e-3, -2e-3, 1.0], dtype=f64, device=device))
+    normals[1] = unit(torch.tensor([0.3, 0.2, 1e-3], dtype=f64, device=device))
+    normals[2] = unit(torch.tensor([0.3, -0.2, -1e-3], dtype=f64, device=device))
+    g = 0.1 * rn(nb, 3, 3)
+    cov = g @ g.transpose(1, 2) + torch.diag(torch.tensor([0.5, 0.02, 0.02], dtype=f64, device=device))
+    mu = torch.cat([12.0 + rn(nb, 1), normals], dim=1)
+    to = lambda a: a.to(dtype).contiguous()
+    cov_t, mu_t, vel_t = to(cov.permute(2, 1, 0)), to(mu.T), to(0.5 * rn(3, nb))
+    beams = unit(rn(nb, 3) * torch.tensor([0.2, 0.2, 0.1], dtype=f64, device=device)
+                 + torch.tensor([0.0, 0.0, -1.0], dtype=f64, device=device))
+    origins = 0.1 * rn(nb, 3)
+    # ranges near the ones the means predict: h = ((0, 0, −d) − o)·n / (dir·n)
+    h = ((torch.cat([torch.zeros(nb, 2, dtype=f64, device=device), -mu[:, :1]], 1) - origins) * normals).sum(1)
+    z = (h / (beams * normals).sum(1) + 0.05 * rn(nb))[None]
+    z[0, 3] += 500.0
+    zn = unit(normals + 0.05 * rn(nb, 3))
+    eye = lambda m, v: (torch.eye(m, dtype=dtype, device=device) * v)[..., None].expand(m, m, nb).contiguous()
+    qa = 0.3 * torch.randn(3, 3, generator=gen, dtype=f64, device=device)
+    q9 = tuple((qa @ qa.T + torch.eye(3, dtype=f64, device=device)).reshape(9).tolist())
+    base = (cov_t, mu_t, vel_t, 0.1, q9)
+    rng_ops = ([to(z)], [eye(1, 0.04)], [to(beams.T)], [to(origins.T)], [3.841])
+    nrm_ops = ([to(zn.T)], [eye(2, 0.01)], [None], [None], [5.991])
+    return {
+        "predict": ((), True, *base, [], [], [], [], []),
+        "predict+range+normal": (("range", "normal"), True, *base, *(a + b for a, b in zip(rng_ops, nrm_ops))),
+    }
+
+
+def solve_check_operands(nb: int, dtype, device, gen: torch.Generator, ill: bool, k: int = 53):
+    """K8 operands at bank ``nb``, n = 53: the ill-conditioned systems of the
+    JAX package's smoother test (aaᵀ + 53·I scaled by 10^U(-5.5, 0.5)) or
+    random correlated ones with variances from 1e-11 to 10; NaN in the
+    unread half."""
+    f64, n = torch.float64, 53
+    a = torch.randn(nb, n, n, generator=gen, dtype=f64, device=device)
+    u = torch.rand(n, generator=gen, dtype=f64, device=device)
+    if ill:
+        base, d = a @ a.transpose(1, 2) + n * torch.eye(n, dtype=f64, device=device), 10.0 ** (6.0 * u - 5.5)
+    else:
+        base = a @ a.transpose(1, 2) / n + torch.eye(n, dtype=f64, device=device)
+        s = torch.sqrt(torch.diagonal(base, dim1=1, dim2=2))
+        base, d = base / (s[:, :, None] * s[:, None, :]), torch.sqrt(10.0 ** (12.0 * u - 11.0))
+    a_t = (base * d[None, :, None] * d[None, None, :]).permute(2, 1, 0)
+    lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=device), -1)[..., None]
+    b_t = torch.randn(n, k, nb, generator=gen, dtype=f64, device=device)
+    return torch.where(lower, float("nan"), a_t).to(dtype).contiguous(), b_t.to(dtype).contiguous()
+
+
+def phase_checks_bottom_solve(device):
+    """K7 and K8 against their plain versions at bank 300, float32 and
+    float64: K7 predict alone and predict + [range, normal] with instance 3
+    rejected by the gate; K8 on random and on
+    ill-conditioned 53x53 systems with 53 right-hand sides."""
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+
+    nb = 300
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=device).manual_seed(31)
+        ops = bottom_check_operands(nb, dtype, device, gen)
+        for label, args in ops.items():
+            compare("bottom_step", f"bottom_step[{label}]", args)
+        acc = bf.bottom_step_lanes_cuda(*ops["predict+range+normal"])[2][0][1][0]
+        if not (acc[3] == 0.0 and int(acc.sum().item()) == nb - 1):
+            raise AssertionError("K7's χ² gate did not reject exactly instance 3")
+        for ill in (False, True):
+            compare("solve_spd", f"solve_spd[{'ill-conditioned' if ill else 'random'} 53x53, k=53]",
+                    solve_check_operands(nb, dtype, device, gen, ill))
+
+
+def bottom_setup(nb: int, dtype, device):
+    """bench.py's small-filter BottomUKF (BASELINE configs[1]): distance 10 m,
+    normal (0, 0, 1), cov diag(1, 0.05, 0.05), velocity (0.5, 0, −0.1), the
+    reference's identity process noise."""
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_ukf as bu
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    state, params = bu.init(bu.BottomState(distance=t([10.0]), normal=t([0.0, 0.0, 1.0])),
+                            torch.diag(t([1.0, 0.05, 0.05])))
+    return bank.replicate(bu.set_velocity(state, t([0.5, 0.0, -0.1])), nb), params
+
+
+def phase_bottom_bank(device, nb: int, captured: dict, counts: dict, steps: int = 30):
+    """The fifth main path: bench.py's BottomUKF step (predict(0.1) + one
+    range beam (0, 0, −1) from the origin, z = 0.3, R = 1e-3, as the bench
+    feeds it) as one K7 launch per step on lanes state at bank ``nb``,
+    float32: one warm step that records K7's operands, then ``steps`` timed
+    steps between a zeroing and a reading of the counters."""
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    dtype = torch.float32
+    bs, params = bottom_setup(nb, dtype, device)
+    ls = bf.to_lanes(bs)
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    up = [bf.StepUpdate("range", t([0.3]).expand(nb, 1), t([[1e-3]]), t([0.0, 0.0, -1.0]), torch.zeros(3, dtype=dtype,
+                                                                                                   device=device))]
+    step = lambda ls: bf.step_lanes(ls, params, 0.1, up)[0]
+    with capture_operands(captured, counts, keep=lambda key: key.startswith("bottom_step")):
+        ls = step(ls)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ls = step(ls)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    rate = nb * steps / seconds
+    log(f"BottomUKF bank: bank={nb} float32 {steps} steps filter-steps/s={rate:.6e} seconds={seconds:.6f} "
+        f"launches={launches}")
+    if launches != {**_NONE, "bottom_step": steps}:
+        raise AssertionError(f"BottomUKF bank launched {launches}")
+    out = bf.from_lanes(ls, bs)
+    unit = (out.mu.normal.norm(dim=1) - 1.0).abs().max().item()
+    if not (bool(torch.isfinite(out.cov).all()) and bool((torch.diagonal(out.cov, dim1=1, dim2=2) > 0).all())
+            and unit < 1e-5):
+        raise AssertionError(f"BottomUKF bank: non-finite or non-positive covariance, or |n| − 1 = {unit:.1e}")
+    return launches, rate, {k: steps for k in counts if k.startswith("bottom_step")}
+
+
+def survey_inputs(spec, nb: int, gen: torch.Generator):
+    """The fleet survey's schedule for a bank of ``nb`` trajectories, (T, nb,
+    …): every stream with its own noise per trajectory and tick, drawn on the
+    card from ``gen`` (gyro, acceleration, DVL, pressure, GPS), the validity
+    flags of the schedule (DVL 5 Hz, pressure 10 Hz, a fix every 30 s)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_driver as drv
+
+    n, dev, dtype = spec.gyro.shape[0], spec.gyro.device, spec.gyro.dtype
+    noisy = lambda clean, sigma: clean[:, None] + float(sigma) * torch.randn(
+        n, nb, *clean.shape[1:], generator=gen, dtype=dtype, device=dev)
+    cov = lambda c: c.expand(n, nb, *c.shape)
+    flag = lambda f: f[:, None].expand(n, nb)
+    sigma = torch.tensor([float(spec.gps_lat_sigma), float(spec.gps_lon_sigma)], dtype=dtype, device=dev)
+    return drv.PoseInputs(
+        dt=torch.full((n, nb), float(spec.dt), dtype=dtype, device=dev),
+        rotation_rate=noisy(spec.gyro, spec.gyro_sigma),
+        acc=noisy(spec.acc, spec.acc_sigma), acc_cov=cov(spec.acc_cov),
+        acc_valid=torch.ones((n, nb), dtype=torch.bool, device=dev),
+        dvl=noisy(spec.dvl, spec.dvl_sigma), dvl_cov=cov(spec.dvl_cov), dvl_valid=flag(spec.dvl_valid),
+        pressure=noisy(spec.pressure, spec.pressure_sigma), pressure_cov=cov(spec.pressure_cov),
+        pressure_valid=flag(spec.pressure_valid),
+        xy=None, xy_cov=None, xy_valid=None, adcp=None, adcp_cov=None, adcp_cell_weighting=None, adcp_valid=None,
+        efforts=None, efforts_cov=None, efforts_valid=None,
+        gps=spec.gps[:, None] + sigma * torch.randn(n, nb, 2, generator=gen, dtype=dtype, device=dev),
+        gps_cov=cov(spec.gps_cov), gps_valid=flag(spec.gps_valid),
+    )
+
+
+def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict):
+    """The sixth main path: survey post-processing. The fleet survey of
+    ``fleet_setup.build_fleet_setup`` (surface fixes every 30 s) at 50 Hz
+    for ``seconds`` over a bank of ``nb`` trajectories in float32, each with
+    its own start perturbation and sensor noise, through
+    ``pose_smoother.run_trajectory_smoothed``: the forward pass
+    (``pose_step_bank``: K2, K3) stores every posterior on the card, the
+    backward pass runs K1 and K8 each tick. Counters zeroed just before and
+    read just after; K1's and K8's operands of the last backward tick are
+    recorded. Holds the smoothed covariance trace to no more than the
+    filtered one at every tick (relative slack 1e-4) and both outputs to
+    finite values; prints the two passes' times and the filtered and
+    smoothed ATE."""
+    import numpy as np
+
+    from slam_uwv_kalman_filters_tpu_torch.models import fleet_setup, monte_carlo
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_smoother as sm
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+
+    state, params, spec = fleet_setup.build_fleet_setup(minutes=seconds / 60.0, rate=50.0, dtype_name="f32",
+                                                        device=device)
+    n = spec.gyro.shape[0]
+    gen = torch.Generator(device=device).manual_seed(17)
+    bs = monte_carlo.perturb_initial_bank(bank.replicate(state, nb), gen, pos_sigma=0.05, vel_sigma=0.05,
+                                          yaw_sigma=3e-3)
+    inputs = survey_inputs(spec, nb, gen)
+    if seconds < 60.0:
+        log(f"survey smoother: the survey is cut to {seconds:g} s ({n} ticks) from the one-minute survey")
+    marks = {}
+
+    def backward(*args):
+        torch.cuda.synchronize()
+        marks["backward"] = time.perf_counter()
+        return smooth_backward(*args)
+
+    smooth_backward = sm.smooth_backward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with capture_operands(captured, counts, keep=lambda key: key in ("solve_spd", "sigma_deltas")), \
+            patched((sm, "smooth_backward", backward)):
+        out = sm.run_trajectory_smoothed(bs, params, inputs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    fwd, bwd = marks["backward"] - t0, t1 - marks["backward"]
+    truth = spec.truth_pos.double()[:, None]
+    ate = {name: torch.sqrt(((mu.position.double() - truth) ** 2).sum(-1).mean(0)).cpu().numpy()
+           for name, mu in (("filtered", out.filtered_mu), ("smoothed", out.smoothed_mu))}
+    ftr = torch.diagonal(out.filtered_cov, dim1=-2, dim2=-1).sum(-1)
+    st = torch.diagonal(out.smoothed_cov, dim1=-2, dim2=-1).sum(-1)
+    finite = all(bool(torch.isfinite(x).all()) for x in (out.filtered_cov, out.smoothed_cov,
+                                                          out.filtered_mu.position, out.smoothed_mu.position))
+    excess = ((st - ftr) / ftr).max().item()
+    stats = {name: {"p50_m": float(np.percentile(a, 50)), "max_m": float(a.max())} for name, a in ate.items()}
+    log(f"survey smoother: bank={nb} {n} ticks float32 forward={fwd:.3f} s backward={bwd:.3f} s "
+        f"({1e3 * bwd / (n - 1):.3f} ms per backward tick) ATE filtered p50={stats['filtered']['p50_m']:.4f} "
+        f"max={stats['filtered']['max_m']:.4f} m, smoothed p50={stats['smoothed']['p50_m']:.4f} "
+        f"max={stats['smoothed']['max_m']:.4f} m; max (tr Pˢ − tr P)/tr P = {excess:.3e} (limit 1e-4) "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB launches={launches}")
+    if not finite or excess > 1e-4:
+        raise AssertionError(f"survey smoother: finite={finite}, smoothed trace above filtered by {excess:.3e}")
+    if launches["solve_spd"] != n - 1 or launches["sigma_deltas"] < n - 1:
+        raise AssertionError(f"survey smoother: expected {n - 1} K8 and K1 launches, got {launches}")
+    del out, inputs
+    torch.cuda.empty_cache()
+    return launches, {"ticks": n, "bank": nb, "forward_s": fwd, "backward_s": bwd, "ate": stats}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--bank", type=int, default=131072, help="mission-second bank (default 131072)")
@@ -1286,6 +1612,9 @@ def main() -> int:
     parser.add_argument("--fleet-minutes", type=float, default=1.0, help="fleet ATE replay minutes (default 1)")
     parser.add_argument("--velocity-bank", type=int, default=65536, help="VelocityUKF bank (default 65536)")
     parser.add_argument("--online-seconds", type=int, default=10, help="online estimator seconds (default 10)")
+    parser.add_argument("--smoother-seconds", type=float, default=60.0,
+                        help="survey smoother seconds at 50 Hz (default 60; 40 still spans the fixes at 0 s and "
+                             "30 s)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1310,31 +1639,51 @@ def main() -> int:
     phase_mean_accuracy(device)
     phase_checks_banked(device)
     phase_checks_steps(device)
+    phase_checks_bottom_solve(device)
     captured, counts, stats = {}, {}, {}
     ls, like, params, meas, shared, rate, mission_counts = phase_mission(device, args.bank, captured, counts)
     generic = phase_generic(ls, like, params, meas, captured, counts)
-    times = phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.bank * 100 / rate, stats)
+    times = phase_mission_shapes("mission second (shared parameters)", captured, counts, mission_counts,
+                                 1e3 * args.bank * 100 / rate, stats)
     del captured
     idle = phase_profile(ls, params, meas)
     chain_ls = ls  # the chain's state after its two mission seconds
     del ls, like, params, meas
     captured, counts = {}, {}
     banked, rate_banked, mission_counts = phase_banked_mission(device, args.bank, captured, counts)
-    times.update(phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.bank * 100 / rate_banked, stats))
+    times.update(phase_mission_shapes("mission second (banked parameters)", captured, counts, mission_counts,
+                                      1e3 * args.bank * 100 / rate_banked, stats))
     del captured
     torch.cuda.empty_cache()
     captured, counts = {}, {}
     stepped, rate_stepped, mission_counts = phase_stepped_mission(device, args.bank, chain_ls, captured, counts)
     del chain_ls
-    times.update(phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.bank * 100 / rate_stepped, stats))
+    times.update(phase_mission_shapes("stepped mission second", captured, counts, mission_counts,
+                                      1e3 * args.bank * 100 / rate_stepped, stats))
     del captured
     torch.cuda.empty_cache()
     latency, latency_launches = phase_online_latency(device)
     estimator, estimator_launches = phase_online_estimator(device, seconds=args.online_seconds)
     captured, counts = {}, {}
     velocity, rate_velocity, mission_counts = phase_velocity_bank(device, args.velocity_bank, captured, counts)
-    times.update(phase_mission_shapes(captured, counts, mission_counts, 1e3 * args.velocity_bank * 30 / rate_velocity,
-                                      stats))
+    times.update(phase_mission_shapes("VelocityUKF bank's 30 steps", captured, counts, mission_counts,
+                                      1e3 * args.velocity_bank * 30 / rate_velocity, stats))
+    del captured
+    torch.cuda.empty_cache()
+    captured, counts = {}, {}
+    bottom, rate_bottom, mission_counts = phase_bottom_bank(device, BOTTOM_BANK, captured, counts)
+    times.update(phase_mission_shapes("BottomUKF bank's 30 steps", captured, counts, mission_counts,
+                                      1e3 * BOTTOM_BANK * 30 / rate_bottom, stats))
+    del captured
+    captured, counts = {}, {}
+    smoother_launches, smoother = phase_smoother(device, SMOOTHER_BANK, args.smoother_seconds, captured, counts)
+    # K1 and K8 on the backward pass's operands; the table keeps K1's time on
+    # the mission's operands above and K8's from here
+    backward = phase_mission_shapes("survey smoother's backward pass", captured, counts,
+                                    {k: smoother_launches[k] for k in captured}, 1e3 * smoother["backward_s"], stats)
+    times["solve_spd"] = backward["solve_spd"]
+    smoother["sigma_deltas_times_ms"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                                                 backward["sigma_deltas"]))
     del captured
     torch.cuda.empty_cache()
     fleet = phase_fleet_ate(device, args.fleet_bank, args.fleet_minutes)
@@ -1344,7 +1693,7 @@ def main() -> int:
     paths = {
         "shared_mission_second": shared, "banked_mission_second": banked, "stepped_mission_second": stepped,
         "online_latency": latency_launches, "online_estimator": estimator_launches,
-        "velocity_bank": velocity,
+        "velocity_bank": velocity, "bottom_bank": bottom, "survey_smoother": smoother_launches,
     }
     missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
     if missing:
@@ -1370,7 +1719,8 @@ def main() -> int:
         "stepped_mission_ticks_per_s": rate_stepped, "bank": args.bank,
         "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
         "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
-        "velocity_bank": args.velocity_bank,
+        "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
+        "bottom_bank": BOTTOM_BANK, "survey_smoother": smoother,
         "dtype": "float32", "device_idle_share": idle, "fleet_ate": fleet, "card": smi,
         "wall_s": time.perf_counter() - t_start}
     log(json.dumps(table))

@@ -18,10 +18,11 @@
 //      rate) with common.cuh's qexp / qmul / qnorm;
 //   2. each update of the chain observes state rows directly (DVL rows 0..2,
 //      pressure row 3), so the ukfom sigma-point update reduces exactly to
-//      S = H·P·Hᵀ + R, C = P·Hᵀ: the m x m Crout factor of S, the NIS νᵀS⁻¹ν,
-//      the gain K = C·S⁻¹, the gate as a select (a threshold < 0 accepts any;
-//      a NaN S leaves the instance's prior), the correction μ + K·ν and the
-//      exactly symmetric downdate P − (K·L_S)(K·L_S)ᵀ.
+//      S = H·P·Hᵀ + R, C = P·Hᵀ, then the Kalman tail of small_ukf.cuh
+//      (shared with K7): the m x m Crout factor of S, the NIS νᵀS⁻¹ν, the gain
+//      K = C·S⁻¹, the gate as a select (a threshold < 0 accepts any; a NaN S
+//      leaves the instance's prior), the correction μ + K·ν and the exactly
+//      symmetric downdate P − (K·L_S)(K·L_S)ᵀ.
 //
 // Bound on Hopper: latency. Each instance reads ~31 and writes ~21 values
 // (4x4 cov, mean, efforts, gyro, tracker), ~200 bytes in float32 at 3.35 TB/s,
@@ -36,7 +37,7 @@
 // (4, nb), trk_out (13, nb); per update m2_k (nb), acc_k (nb) as 1/0, nu_k
 // (m_k, nb). The chain is a by-value VelChain of at most kVelMaxSteps updates.
 
-#include "common.cuh"
+#include "small_ukf.cuh"
 
 namespace slam {
 
@@ -63,53 +64,14 @@ struct VelChain {
   T* nu[kVelMaxSteps];
 };
 
-// Cholesky–Crout of an M x M grid (lower half used)
-template <typename T, int M>
-__device__ __forceinline__ void crout(const T (&A)[M][M], T (&L)[M][M]) {
-#pragma unroll
-  for (int j = 0; j < M; ++j) {
-    T s = A[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    L[j][j] = d_sqrt(s);
-    const T inv = T(1) / L[j][j];
-#pragma unroll
-    for (int i = j + 1; i < M; ++i) {
-      T t = A[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-      L[i][j] = t * inv;
-    }
-  }
-}
-
-// x = (L·Lᵀ)⁻¹ rhs
-template <typename T, int M>
-__device__ __forceinline__ void solve_chol(const T (&L)[M][M], const T (&inv_d)[M], const T (&rhs)[M],
-                                           T (&x)[M]) {
-  T y[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    T t = rhs[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) t -= L[i][k] * y[k];
-    y[i] = t * inv_d[i];
-  }
-#pragma unroll
-  for (int i = M - 1; i >= 0; --i) {
-    T t = y[i];
-#pragma unroll
-    for (int k = i + 1; k < M; ++k) t -= L[k][i] * x[k];
-    x[i] = t * inv_d[i];
-  }
-}
-
-// One linear update observing rows ROW0 .. ROW0 + M − 1 of the state.
+// One linear update observing rows ROW0 .. ROW0 + M − 1 of the state: for
+// such an H the ukfom update is S = H·P·Hᵀ + R, C = P·Hᵀ, then the Kalman
+// tail of small_ukf.cuh.
 template <typename T, int M, int ROW0>
 __device__ __forceinline__ void linear_update(T (&P)[kVelDof][kVelDof], T (&mu)[kVelDof],
                                               const T* z, const T* rmat, T thr, T* m2_out,
                                               T* acc_out, T* nu_out, long long b, long long nb) {
-  T S[M][M], Ls[M][M], inv_d[M], nu[M], q[M];
+  T S[M][M], nu[M], C[kVelDof][M], corr[kVelDof], m2;
 #pragma unroll
   for (int a = 0; a < M; ++a) {
 #pragma unroll
@@ -118,47 +80,17 @@ __device__ __forceinline__ void linear_update(T (&P)[kVelDof][kVelDof], T (&mu)[
     nu[a] = z[b + a * nb] - mu[ROW0 + a];
     nu_out[b + a * nb] = nu[a];
   }
-  crout<T, M>(S, Ls);
-#pragma unroll
-  for (int a = 0; a < M; ++a) inv_d[a] = T(1) / Ls[a][a];
-  solve_chol<T, M>(Ls, inv_d, nu, q);
-  T m2 = T(0);
-#pragma unroll
-  for (int a = 0; a < M; ++a) m2 += nu[a] * q[a];
-  const bool accept = (thr < T(0)) || (m2 <= thr);
-  m2_out[b] = m2;
-  acc_out[b] = accept ? T(1) : T(0);
-  T K[kVelDof][M], W[kVelDof][M], corr[kVelDof];
 #pragma unroll
   for (int i = 0; i < kVelDof; ++i) {
-    T ci[M];
 #pragma unroll
-    for (int a = 0; a < M; ++a) ci[a] = P[i][ROW0 + a];
-    solve_chol<T, M>(Ls, inv_d, ci, K[i]);
-    T t = T(0);
-#pragma unroll
-    for (int a = 0; a < M; ++a) t += K[i][a] * nu[a];
-    corr[i] = t;
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      T w = T(0);
-#pragma unroll
-      for (int c = a; c < M; ++c) w += K[i][c] * Ls[c][a];
-      W[i][a] = w;
-    }
+    for (int a = 0; a < M; ++a) C[i][a] = P[i][ROW0 + a];
   }
+  const bool accept = kalman_tail<T, kVelDof, M>(P, S, C, nu, thr, corr, m2);
+  m2_out[b] = m2;
+  acc_out[b] = accept ? T(1) : T(0);
   if (accept) {
 #pragma unroll
-    for (int i = 0; i < kVelDof; ++i) {
-      mu[i] += corr[i];
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        T t = T(0);
-#pragma unroll
-        for (int a = 0; a < M; ++a) t += W[i][a] * W[j][a];
-        P[i][j] = P[j][i] = P[i][j] - t;
-      }
-    }
+    for (int i = 0; i < kVelDof; ++i) mu[i] += corr[i];
   }
 }
 

@@ -57,7 +57,7 @@ import torch
 
 from ..ops import cuda_lib
 from ..ops import geodesy as geo
-from ..ops.kernels import equilibrated_cholesky
+from ..ops.kernels import _mirror_half, equilibrated_cholesky
 from ..utils.memo import last_operands
 
 if TYPE_CHECKING:
@@ -175,14 +175,6 @@ def _rot_fwd(q, v):
 
 def _cross(u, t):
     return (u[1] * t[2] - u[2] * t[1], u[2] * t[0] - u[0] * t[2], u[0] * t[1] - u[1] * t[0])
-
-
-def _mirror_half(cov_t: torch.Tensor) -> torch.Tensor:
-    """Symmetric matrix from a half-valid (n, n, B) covariance (valid at
-    [c, r ≥ c])."""
-    n = cov_t.shape[0]
-    keep = torch.triu(torch.ones((n, n), dtype=torch.bool, device=cov_t.device))[..., None]
-    return torch.where(keep, cov_t, cov_t.transpose(0, 1))
 
 
 def _lower_half(full_t: torch.Tensor) -> torch.Tensor:

@@ -103,6 +103,17 @@ KERNELS = {
         # thr* (double), m2**, acc**, nu**, cov_out, mu_out, trk_out, nb, stream
         (_I32, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     ),
+    "bottom_step": Kernel(
+        "bottom_step", "slam_bottom_step", "csrc/bottom_step.cu",
+        # do_predict, cov_t, mu_t, vel_t, dt (double), q9* (double), n_upd, models*, z**, r**,
+        # dir**, org**, thr* (double), m2**, acc**, nu**, cov_out, mu_out, nb, stream
+        (_I32, _P, _P, _P, _F64, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    ),
+    "solve_spd": Kernel(
+        "solve_spd", "slam_solve_spd", "csrc/solve_spd.cu",
+        # a_t, b_t, out_t, scratch, n, k, nb, stream
+        (_P, _P, _P, _P, _I32, _I32, _I64, _P),
+    ),
 }
 
 

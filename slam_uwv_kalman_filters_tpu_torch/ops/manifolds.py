@@ -8,12 +8,14 @@ Conventions are the JAX package's, pinned by the same oracle tests:
 * SO(3): ``q ⊞ δ = q ⊗ Exp(δ·scale)`` and ``a ⊟ b = Log(b⁻¹ ⊗ a)``.
 * Flat fields (``vec``): ``⊞`` is addition, ``⊟`` subtraction.
 * 3×3 matrix fields (``mat33``): 9 DOF, *column-major* vectorization.
+* S² (``s2``): a unit 3-vector with 2 DOF, ⊞/⊟ the sphere's exponential
+  and log maps in a Householder tangent basis.
 * Product manifolds concatenate per-field tangent vectors in declaration
   order (the ``MTK_BUILD_MANIFOLD`` covariance layout).
 
 Where JAX wrote a per-instance function and ``vmap``-ed it, every function
-here broadcasts over leading batch axes: a quaternion is ``(..., 4)``, a
-tangent vector ``(..., dof)``. The S² fields wait for the BottomUKF port.
+here broadcasts over leading batch axes: a quaternion is ``(..., 4)``, an S²
+point ``(..., 3)``, a tangent vector ``(..., dof)``.
 """
 
 from __future__ import annotations
@@ -39,9 +41,15 @@ __all__ = [
     "quat_from_euler_zyx",
     "so3_boxplus",
     "so3_boxminus",
+    "s2_normalize",
+    "s2_tangent_basis",
+    "s2_boxplus",
+    "s2_boxminus",
     "Field",
     "ProductManifold",
     "make_manifold",
+    "S2Direct",
+    "S2_MANIFOLD",
 ]
 
 # ---------------------------------------------------------------------------
@@ -198,21 +206,73 @@ def so3_boxminus(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# S² unit-sphere manifold (2 DOF), stored as a unit 3-vector.
+# ---------------------------------------------------------------------------
+
+
+def s2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def s2_tangent_basis(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal tangent basis B(x) (..., 3, 2) at unit vectors x: the
+    first two columns of the Householder reflection mapping e₃ → ±x, the
+    sign taken from the hemisphere (x₂ ≥ 0) so that |v| stays away from 0;
+    the identity where |v|² < 1e-24."""
+    sign = torch.where(x[..., 2:3] >= 0.0, 1.0, -1.0).to(x.dtype)
+    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=x.dtype, device=x.device)
+    v = sign * x - e3
+    v2 = (v * v).sum(-1)[..., None, None]
+    degen = v2 < 1e-24
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    h = eye - 2.0 * (v[..., :, None] * v[..., None, :]) / torch.where(degen, torch.ones_like(v2), v2)
+    return torch.where(degen, eye, h)[..., :2]
+
+
+def s2_boxplus(x: torch.Tensor, delta: torch.Tensor, scale=1.0) -> torch.Tensor:
+    """x ⊞ δ = cos|v|·x + sin|v|·v/|v|, v = B(x)·δ·scale, renormalized."""
+    v = (s2_tangent_basis(x) @ (delta * scale)[..., None])[..., 0]
+    theta2 = (v * v).sum(-1, keepdim=True)
+    theta = torch.sqrt(theta2)
+    small = theta2 < 1e-24
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    sinc = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(safe) / safe)
+    return s2_normalize(torch.cos(theta) * x + sinc * v)
+
+
+def s2_boxminus(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y ⊟ x = B(x)ᵀ·Log_x(y) ∈ ℝ², θ = atan2(|x×y|, x·y). Where y has no
+    tangential part at x: 0 if y = x, and B(x)[:, 0]·π at the antipode."""
+    x, y = torch.broadcast_tensors(x, y)
+    s = torch.linalg.vector_norm(torch.linalg.cross(x, y, dim=-1), dim=-1, keepdim=True)
+    d = (x * y).sum(-1, keepdim=True)
+    theta = torch.atan2(s, d)
+    t = y - d * x
+    tn = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+    small = tn < 1e-12
+    b = s2_tangent_basis(x)
+    u = torch.where(small, torch.where(d > 0.0, torch.zeros_like(x), b[..., 0]),
+                    t / torch.where(small, torch.ones_like(tn), tn))
+    return (b.transpose(-1, -2) @ (theta * u)[..., None])[..., 0]
+
+
+# ---------------------------------------------------------------------------
 # Product manifolds (the MTK_BUILD_MANIFOLD equivalent).
 # ---------------------------------------------------------------------------
 
 _KIND_VEC = "vec"
 _KIND_SO3 = "so3"
+_KIND_S2 = "s2"
 _KIND_MAT33 = "mat33"
 
-_VALID_KINDS = (_KIND_VEC, _KIND_SO3, _KIND_MAT33)
+_VALID_KINDS = (_KIND_VEC, _KIND_SO3, _KIND_S2, _KIND_MAT33)
 
 
 @dataclasses.dataclass(frozen=True)
 class Field:
     """One component of a product manifold: ``vec`` (ℝᵈⁱᵐ, shape (dim,)),
-    ``so3`` (quaternion (4,), 3 DOF) or ``mat33`` ((3, 3), 9 DOF
-    column-major)."""
+    ``so3`` (quaternion (4,), 3 DOF), ``s2`` (unit vector (3,), 2 DOF) or
+    ``mat33`` ((3, 3), 9 DOF column-major)."""
 
     name: str
     kind: str
@@ -221,7 +281,7 @@ class Field:
     def __post_init__(self):
         if self.kind not in _VALID_KINDS:
             raise ValueError(f"unknown manifold field kind: {self.kind!r}")
-        dof = {"so3": 3, "mat33": 9}.get(self.kind, self.dim)
+        dof = {"so3": 3, "s2": 2, "mat33": 9}.get(self.kind, self.dim)
         if self.kind == _KIND_VEC and self.dim <= 0:
             raise ValueError(f"vec field {self.name!r} needs dim > 0")
         object.__setattr__(self, "dim", dof)
@@ -232,6 +292,8 @@ def _field_boxplus(field: Field, value, delta, scale):
         return value + scale * delta
     if field.kind == _KIND_SO3:
         return so3_boxplus(value, delta, scale)
+    if field.kind == _KIND_S2:
+        return s2_boxplus(value, delta, scale)
     # column-major vectorization: δ[3*c+r] lands on (r, c)
     return value + scale * delta.reshape(*delta.shape[:-1], 3, 3).transpose(-1, -2)
 
@@ -241,6 +303,8 @@ def _field_boxminus(field: Field, a, b):
         return a - b
     if field.kind == _KIND_SO3:
         return so3_boxminus(a, b)
+    if field.kind == _KIND_S2:
+        return s2_boxminus(a, b)
     d = (a - b).transpose(-1, -2)
     return d.reshape(*d.shape[:-2], 9)
 
@@ -284,36 +348,80 @@ class ProductManifold:
 
     def mean(self, points: Any, *, max_iters: int = 64, tol: float = 1e-12) -> Any:
         """Equal-weight manifold mean over the leading (sigma) axis of every
-        field: flat fields in closed form, SO(3) by ukfom's iterative mean
-        started from points[0]."""
+        field: flat fields in closed form, SO(3) and S² by ukfom's iterative
+        mean started from points[0]."""
+        curved = {_KIND_SO3: (so3_boxplus, so3_boxminus), _KIND_S2: (s2_boxplus, s2_boxminus)}
         updates = {}
         for f in self.fields:
             vals = getattr(points, f.name)
-            if f.kind == _KIND_SO3:
-                updates[f.name] = _iterative_mean(vals, max_iters=max_iters, tol=tol)
+            if f.kind in curved:
+                updates[f.name] = _iterative_mean(vals, *curved[f.kind], max_iters=max_iters, tol=tol)
             else:
                 updates[f.name] = vals.mean(dim=0)
         return points._replace(**updates)
 
 
-def _iterative_mean(vals: torch.Tensor, *, max_iters: int, tol: float) -> torch.Tensor:
-    """Iterative Karcher mean of unit quaternions ``vals`` (K, ..., 4) over
-    the leading axis, started from vals[0] (ukfom convention).
+def _iterative_mean(vals: torch.Tensor, boxplus, boxminus, *, max_iters: int, tol: float) -> torch.Tensor:
+    """Iterative Karcher mean of manifold points ``vals`` (K, ..., d) over
+    the leading axis through ``boxplus`` / ``boxminus``, started from
+    vals[0] (ukfom convention).
 
     Every instance of the batch runs its own tolerance loop, as the JAX
     ``lax.while_loop`` does under ``vmap``: an instance whose last correction
-    fell to ``tol`` or below is frozen (masked), and the batch runs
-    ``max_iters`` iterations without ever asking the host whether all
-    instances have converged."""
+    fell to ``tol`` or below is frozen (masked). Once every instance is
+    frozen the remaining iterations are identities, and the loop ends: on
+    the CPU the host reads that flag; on the card each iteration copies it,
+    non-blocking, to pinned host memory behind an event that the host polls
+    and never waits on, so the loop ends a few iterations after the card has
+    converged and the host never waits for the device."""
     m = vals[0]
     norm = torch.full(m.shape[:-1], float("inf"), dtype=vals.dtype, device=vals.device)
-    for _ in range(max_iters):
+    on_card = vals.device.type == "cuda"
+    # True until its copy lands, so a flag read early can never end the loop
+    flags = torch.ones(max_iters, dtype=torch.bool, pin_memory=True) if on_card else None
+    reported = []  # (iteration, event) of the flags on their way to the host, oldest first
+    for it in range(max_iters):
         active = norm > tol
-        delta = so3_boxminus(vals, m[None]).mean(dim=0)
-        m = torch.where(active[..., None], so3_boxplus(m, delta), m)
+        delta = boxminus(vals, m[None]).mean(dim=0)
+        m = torch.where(active[..., None], boxplus(m, delta), m)
         norm = torch.where(active, torch.linalg.vector_norm(delta, dim=-1), norm)
+        any_active = (norm > tol).any()
+        if not on_card:
+            if not bool(any_active):
+                break
+            continue
+        flags[it].copy_(any_active, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(vals.device))  # the copy's stream
+        reported.append((it, event))
+        while reported and reported[0][1].query():
+            if not bool(flags[reported.pop(0)[0]]):
+                return m
     return m
 
 
 def make_manifold(*fields: Field) -> ProductManifold:
     return ProductManifold(fields)
+
+
+class S2Direct:
+    """Measurement manifold of bare S² unit vectors (the seafloor normal of
+    ``src/BottomUKF.cpp:63-67``): the part of the ProductManifold interface
+    that ``ops.ukf.update`` needs."""
+
+    dof = 2
+
+    @staticmethod
+    def boxminus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return s2_boxminus(a, b)
+
+    @staticmethod
+    def boxplus(x: torch.Tensor, delta: torch.Tensor, scale=1.0) -> torch.Tensor:
+        return s2_boxplus(x, delta, scale)
+
+    @staticmethod
+    def mean(points: torch.Tensor, *, max_iters: int = 64, tol: float = 1e-12) -> torch.Tensor:
+        return _iterative_mean(points, s2_boxplus, s2_boxminus, max_iters=max_iters, tol=tol)
+
+
+S2_MANIFOLD = S2Direct()

@@ -8,7 +8,10 @@ ukfom conventions, as in the JAX package:
 * Mean: equal-weight iterative manifold mean started from X₀.
 * Covariances: ½·Σᵢ outer products of ⊟-deviations.
 * Update: fresh sigma points; S = ½ΣdZdZᵀ + R; C = ½ΣδdZᵀ; K = C·S⁻¹; χ²
-  gate on νᵀS⁻¹ν as a masked select, never control flow.
+  gate on νᵀS⁻¹ν as a masked select, never control flow. A measurement on a
+  manifold (S²) takes its mean on the manifold, and dZ and ν are ⊟ at it.
+* Smoothing: the unscented RTS step of the JAX package's ``smooth_step``,
+  its gain from the banked SPD solve (kernel K8 on a CUDA tensor).
 
 Where JAX vmapped a per-instance function, these functions take a bank:
 every field of ``mu`` has a leading bank axis (B, ...), ``cov`` is
@@ -24,7 +27,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from .kernels import sigma_deltas_banked
+from .kernels import sigma_deltas_banked, solve_spd_banked
 from .linalg_small import solve_spd
 from .manifolds import ProductManifold
 
@@ -36,6 +39,7 @@ __all__ = [
     "sigma_points",
     "predict",
     "update",
+    "smooth_step",
 ]
 
 # χ² gate thresholds for 2 degrees of freedom
@@ -106,18 +110,33 @@ def update(
     h: Callable[[Any], torch.Tensor],
     meas_cov: torch.Tensor,
     *,
+    meas_manifold=None,
     gate_threshold: Optional[float] = None,
     jitter: float = 0.0,
+    mean_iters: int = 64,
+    mean_tol: Optional[float] = None,
 ):
     """Unscented measurement update of a bank. ``h`` maps the (2n+1, B)
-    sigma points to (2n+1, B, m); ``z`` is (B, m); ``meas_cov`` (m, m) or
-    (B, m, m). ``gate_threshold=None`` accepts any measurement."""
+    sigma points to (2n+1, B, m), or with ``meas_manifold`` (e.g.
+    ``manifolds.S2_MANIFOLD``) to points of that manifold, whose mean is
+    then iterative and whose deviations and innovation are ⊟ at it; ``z`` is
+    (B, m) or (B, …) on the manifold; ``meas_cov`` (m, m) or (B, m, m).
+    ``gate_threshold=None`` accepts any measurement."""
+    if mean_tol is None:
+        mean_tol = _default_tol(cov.dtype)
     deltas = sigma_point_deltas(cov, jitter=jitter)  # (B, 2n+1, n) == X_i ⊟ mu
     X = manifold.boxplus(mu, deltas.transpose(0, 1))
     Z = h(X)  # (2n+1, B, m)
-    z_mean = Z.mean(dim=0)
-    dZ = (Z - z_mean[None]).to(cov.dtype).permute(1, 0, 2)  # (B, 2n+1, m)
-    innovation = (z - z_mean).to(cov.dtype)
+    if meas_manifold is None:
+        z_mean = Z.mean(dim=0)
+        dZ = Z - z_mean[None]
+        innovation = z - z_mean
+    else:
+        z_mean = meas_manifold.mean(Z, max_iters=mean_iters, tol=mean_tol)
+        dZ = meas_manifold.boxminus(Z, z_mean[None])
+        innovation = meas_manifold.boxminus(z, z_mean)
+    dZ = dZ.to(cov.dtype).permute(1, 0, 2)  # (B, 2n+1, m)
+    innovation = innovation.to(cov.dtype)
     meas_cov = torch.as_tensor(meas_cov, dtype=cov.dtype, device=cov.device)
 
     S = _symmetrize(0.5 * (dZ.transpose(1, 2) @ dZ) + meas_cov)
@@ -141,3 +160,39 @@ def update(
 
     mu_out = type(mu)(*[select(a, b) for a, b in zip(mu_new, mu)])
     return mu_out, select(cov_new, cov), UpdateInfo(m2, accepted, innovation)
+
+
+def smooth_step(
+    manifold: ProductManifold,
+    mu_f: Any,
+    cov_f: torch.Tensor,
+    f: Callable[[Any], Any],
+    process_noise: torch.Tensor,
+    mu_s_next: Any,
+    cov_s_next: torch.Tensor,
+    *,
+    jitter: float = 0.0,
+    mean_iters: int = 64,
+    mean_tol: Optional[float] = None,
+):
+    """One backward unscented Rauch–Tung–Striebel step of a bank: the
+    filtered (μ, P) of tick k with the smoothed (μˢ, Pˢ) of tick k+1,
+    through the forward pass's process model ``f`` and noise (B, n, n):
+
+        χᵢ = μ ⊞ δᵢ,  Υᵢ = f(χᵢ),  μ⁻ = mean(Υ)
+        P⁻ = ½ΣDDᵀ + Q,  C = ½ΣδDᵀ,  G = C·(P⁻)⁻¹ (SPD solve P⁻Gᵀ = Cᵀ)
+        μˢₖ = μ ⊞ G·(μˢₖ₊₁ ⊟ μ⁻),  Pˢₖ = P + G·(Pˢₖ₊₁ − P⁻)·Gᵀ (symmetrized)
+    """
+    if mean_tol is None:
+        mean_tol = _default_tol(cov_f.dtype)
+    deltas = sigma_point_deltas(cov_f, jitter=jitter)  # (B, 2n+1, n)
+    Y = f(manifold.boxplus(mu_f, deltas.transpose(0, 1)))
+    mu_pred = manifold.mean(Y, max_iters=mean_iters, tol=mean_tol)
+    mu_pred = type(mu_pred)(*[a.to(ref.dtype) for a, ref in zip(mu_pred, mu_f)])
+    D = manifold.boxminus(Y, mu_pred).to(cov_f.dtype).permute(1, 0, 2)  # (B, 2n+1, n)
+    cov_pred = _symmetrize(0.5 * (D.transpose(1, 2) @ D) + process_noise).to(cov_f.dtype)
+    C = 0.5 * (deltas.transpose(1, 2) @ D)  # (B, n, n) cross-covariance cov(x_k, x_pred)
+    G = solve_spd_banked(cov_pred, C.transpose(1, 2)).transpose(1, 2)
+    mu_s = manifold.boxplus(mu_f, (G @ manifold.boxminus(mu_s_next, mu_pred)[..., None])[..., 0])
+    cov_s = _symmetrize(cov_f + G @ (cov_s_next - cov_pred) @ G.transpose(1, 2))
+    return mu_s, cov_s

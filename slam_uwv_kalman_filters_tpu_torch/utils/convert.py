@@ -2,8 +2,9 @@
 
 :func:`from_numpy` turns a NamedTuple tree whose leaves are numpy arrays
 (for instance a JAX package ``PoseUKFState``, ``PoseUKFParams``,
-``PoseInputs``, ``FleetMissionSpec``, ``VelocityUKFState`` or
-``VelocityUKFParams`` after ``jax.tree.map(np.asarray, …)``)
+``PoseInputs``, ``FleetMissionSpec``, ``VelocityUKFState``,
+``VelocityUKFParams``, ``BottomUKFState``, ``BottomUKFParams`` or a
+``SmoothedTrajectory`` after ``jax.tree.map(np.asarray, …)``)
 into the port's NamedTuple of the same name, field by field; :func:`to_numpy`
 turns a port tree into numpy leaves. ``None`` leaves (absent sensor streams)
 stay ``None``, and strings (a step update's model name) stay strings. This
@@ -24,7 +25,8 @@ __all__ = ["from_numpy", "to_numpy"]
 
 
 def _port_types() -> dict:
-    from ..models import monte_carlo, pose_driver, pose_fused, pose_ukf, velocity_fused, velocity_ukf
+    from ..models import (bottom_fused, bottom_ukf, monte_carlo, pose_driver, pose_fused, pose_smoother, pose_ukf,
+                          velocity_fused, velocity_ukf)
     from ..ops import dynamics, geodesy, ukf
 
     types = (
@@ -34,6 +36,8 @@ def _port_types() -> dict:
         pose_driver.PoseInputs, pose_driver.PoseStepConstants, monte_carlo.FleetMissionSpec,
         velocity_ukf.VelocityState, velocity_ukf.VelocityUKFParams, velocity_ukf.VelocityUKFState,
         velocity_fused.VelLanesState,
+        bottom_ukf.BottomState, bottom_ukf.BottomUKFParams, bottom_ukf.BottomUKFState, bottom_fused.BottomLanesState,
+        pose_smoother.SmoothedTrajectory,
     )
     return {t.__name__: t for t in types}
 

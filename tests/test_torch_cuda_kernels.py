@@ -16,8 +16,12 @@ another order than PyTorch's library calls).
 operands; :data:`DIGESTS` holds what the kernels gave before K2 gained its
 full mode and K3's update tail moved into ``csrc/common.cuh`` (the build of
 that tree, NVIDIA H100 80GB HBM3), and the test holds the current build to it
-bit for bit. The module imports only what that tree also had, so the same
-function can hash its build.
+bit for bit; :func:`velocity_digests` and :data:`VELOCITY_DIGESTS` do the
+same for K6 across the move of its Crout factor, substitutions and Kalman
+tail into ``csrc/small_ukf.cuh``. The module imports at its top only what
+those trees also had (later modules inside the tests), so the same functions
+can hash their builds. K7 (the BottomUKF step) and K8 (the banked SPD solve)
+are held to their plain versions, K8's error measured on D·X, D = √diag A.
 """
 
 import hashlib
@@ -527,3 +531,221 @@ def test_float32_step_kernel_means_are_as_accurate_as_plain(device):
                                                                    (vf.velocity_step_lanes_plain, v32),
                                                                    (vf.velocity_step_lanes_cuda, v32))]
     assert_as_accurate(pred[2][1], pred[1][1], pred[0][1])
+
+
+# ---------------------------------------------------------------------------
+# K6's arithmetic across the move of its Crout factor, substitutions and
+# Kalman tail into csrc/small_ukf.cuh (shared with K7)
+# ---------------------------------------------------------------------------
+
+
+def velocity_digests(device) -> dict:
+    """sha256 (first 16 hex digits) of K6's outputs — covariance, mean,
+    tracker, NIS, gate, innovation — predict-only, update-only and predict +
+    [DVL, pressure] with a rejecting gate, float32 and float64, on fixed
+    operands made from a seeded numpy Generator."""
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_ukf as vu
+
+    rng = np.random.default_rng(2025)
+    g = rng.normal(size=(NB, 4, 4))
+    q = rng.normal(size=(NB, 4)) * [1.0, 0.2, 0.2, 0.4] + [2.0, 0.0, 0.0, 0.0]
+    cov = 0.02 * (g @ np.swapaxes(g, 1, 2) / 4 + np.eye(4))
+    mu = np.concatenate([rng.normal(0.0, 0.5, (NB, 3)), rng.normal(0.0, 2.0, (NB, 1))], axis=1)
+    eff, av = rng.normal(0.0, 30.0, (NB, 6)), rng.normal(0.0, 0.05, (NB, 3))
+    trk = np.concatenate([rng.normal(size=(NB, 3)), q / np.linalg.norm(q, axis=1, keepdims=True),
+                          rng.normal(0.0, 0.5, (NB, 3)), av], axis=1)
+    z = mu[:, :3] + 0.05
+    z[0] += 3.0
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+        model = bank.tree_map(lambda a: a.to(dtype), dyn.default_uwv_parameters(device=device))
+        model = model._replace(weight=torch.tensor(1000.0, dtype=dtype, device=device), cog=t([0.01, -0.02, 0.05]),
+                               cob=t([0.0, 0.01, -0.03]))
+        scal = vf.params_block(vu.VelocityUKFParams(model, vu.default_process_noise(dtype, device)), 0.05, dtype)
+        base = (t(np.transpose(cov, (2, 1, 0))), t(mu.T), t(eff.T), t(av.T), t(trk.T), scal)
+        r3 = (torch.eye(3, dtype=dtype, device=device) * 0.01)[..., None].expand(3, 3, NB).contiguous()
+        r1 = (torch.eye(1, dtype=dtype, device=device) * 0.04)[..., None].expand(1, 1, NB).contiguous()
+        cases = {
+            "predict": ((), True, *base, [], [], []),
+            "update": (("dvl",), False, *base, [t(z.T)], [r3], [7.815]),
+            "predict+dvl+pressure": (("dvl", "pressure"), True, *base, [t(z.T), t(mu[:, 3:].T + 0.1)], [r3, r1],
+                                     [7.815, -1.0]),
+        }
+        for case, args in cases.items():
+            cov_out, mu_out, trk_out, infos = vf.velocity_step_lanes_cuda(*args)
+            h = hashlib.sha256()
+            for x in (cov_out, mu_out, trk_out, *(v for info in infos for v in info)):
+                h.update(x.detach().cpu().numpy().tobytes())
+            out[f"velocity_step[{case}],{str(dtype).split('.')[-1]}"] = h.hexdigest()[:16]
+    return out
+
+
+# velocity_digests of the build before the move (NVIDIA H100 80GB HBM3, CUDA
+# 12.8, PyTorch 2.11); a change of K6's arithmetic, or of the compiler,
+# changes them
+VELOCITY_DIGESTS = {
+    "velocity_step[predict],float32": "308a5bb60326b615",
+    "velocity_step[predict],float64": "b22658ea1382e0c7",
+    "velocity_step[predict+dvl+pressure],float32": "6858413ce80bbd95",
+    "velocity_step[predict+dvl+pressure],float64": "cae258c7d0c784f3",
+    "velocity_step[update],float32": "fb8a8ab4d601b6f0",
+    "velocity_step[update],float64": "25ddfbb10dde0dea",
+}
+
+
+def test_k6_bit_identical_to_before_the_shared_header(device):
+    got = velocity_digests(device)
+    assert VELOCITY_DIGESTS, "no recorded digests"
+    differ = {k: (got[k], v) for k, v in VELOCITY_DIGESTS.items() if got.get(k) != v}
+    assert not differ, differ
+
+
+# ---------------------------------------------------------------------------
+# K7 (the whole BottomUKF step) and K8 (the banked SPD solve)
+# ---------------------------------------------------------------------------
+
+
+def _unit(v):
+    v = np.asarray(v, dtype=np.float64)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def bottom_operands(device, dtype, nb=NB, seed=14):
+    """K7 operands on a bank of BottomUKF filters: correlated covariances,
+    velocities, normals tilted at random, at the pole's neighbourhood and on
+    both sides of the equator (x₂ = ±1e-3, where the basis changes sides;
+    float32 rounding of a mean at ±1e-9 would pick the side itself), three
+    pad lanes at the end in the JAX package's convention; a range whose
+    instance 4 is a wild outlier for a χ² gate, a normal observation.
+    Returns {case: args} for predict, range, normal and the chain."""
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+
+    rng = np.random.default_rng(seed)
+    normals = _unit(rng.normal(size=(nb, 3)) * 0.2 + [0.0, 0.0, 1.0])
+    normals[0], normals[1] = _unit([1e-3, -2e-3, 1.0]), _unit([0.3, 0.2, 1e-3])
+    normals[2], normals[3] = _unit([0.3, -0.2, -1e-3]), _unit([0.0, 0.1, -1.0])
+    g = rng.normal(size=(nb, 3, 3)) * 0.1
+    cov = g @ np.swapaxes(g, 1, 2) + np.diag([0.5, 0.02, 0.02])
+    dist = 12.0 + rng.normal(size=(nb, 1))
+    vel = rng.normal(0.0, 0.5, (nb, 3))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+    pad, lanes = 3, nb + 3
+    ls = bf.BottomLanesState(
+        cov_t=t(np.transpose(np.concatenate([cov, np.broadcast_to(np.eye(3), (pad, 3, 3))]), (2, 1, 0))),
+        mu_t=t(np.concatenate([np.concatenate([dist, normals], 1), np.tile(np.concatenate([dist[:1], normals[:1]], 1),
+                                                                           (pad, 1))]).T),
+        vel_t=t(np.concatenate([vel, np.tile(vel[:1], (pad, 1))]).T),
+    )
+    beam = _unit(rng.normal(size=(lanes, 3)) * [0.2, 0.2, 0.1] + [0.0, 0.0, -1.0])
+    beam[nb:] = [0.0, 0.0, -1.0]
+    org = rng.normal(0.0, 0.1, (lanes, 3))
+    org[nb:] = 0.0
+    # ranges near the ones the means predict: h = ((0, 0, −d) − o)·n / (dir·n)
+    z = (np.einsum("bi,bi->b", np.concatenate([np.zeros((nb, 2)), -dist], 1) - org[:nb], normals)
+         / np.einsum("bi,bi->b", beam[:nb], normals) + rng.normal(0.0, 0.05, nb))
+    z = np.concatenate([z, np.zeros(pad)])[None]
+    z[0, 4] += 500.0
+    zn = _unit(np.concatenate([normals, np.tile([0.0, 0.0, 1.0], (pad, 1))]) + rng.normal(0.0, 0.05, (lanes, 3)))
+    r1 = (torch.eye(1, dtype=dtype, device=device) * 0.04)[..., None].expand(1, 1, lanes).contiguous()
+    r2 = (torch.eye(2, dtype=dtype, device=device) * 0.01)[..., None].expand(2, 2, lanes).contiguous()
+    qa = rng.normal(size=(3, 3)) * 0.3
+    q9 = tuple((qa @ qa.T + np.eye(3)).reshape(9).tolist())
+    base = (ls.cov_t, ls.mu_t, ls.vel_t, 0.1, q9)
+    rng_ops = ([t(z)], [r1], [t(beam.T)], [t(org.T)], [3.841])
+    nrm_ops = ([t(zn.T)], [r2], [None], [None], [5.991])
+    return {
+        "predict": ((), True, *base, [], [], [], [], []),
+        "range": (("range",), False, *base, *rng_ops),
+        "normal": (("normal",), False, *base, *nrm_ops),
+        "predict+range+normal": (("range", "normal"), True, *base,
+                                 *(a + b for a, b in zip(rng_ops, nrm_ops))),
+    }
+
+
+@pytest.mark.parametrize("case", ["predict", "range", "normal", "predict+range+normal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bottom_step_kernel_matches_plain(device, dtype, case):
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+
+    args = bottom_operands(device, dtype)[case]
+    ko, po = bf.bottom_step_lanes_cuda(*args), bf.bottom_step_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ko[0]).all()) and bool(torch.isfinite(ko[1]).all())  # pad lanes included
+    assert max(_rel(ko[0], po[0]), _rel(ko[1], po[1])) <= LIMIT[dtype]
+    for (km2, kacc, knu), (pm2, pacc, pnu) in zip(ko[2], po[2]):
+        assert torch.equal(kacc, pacc)
+        assert max(_rel(km2, pm2), _rel(knu, pnu)) <= LIMIT[dtype]
+    if "range" in case:  # instance 4 rejected, keeping its prior exactly
+        acc = ko[2][0][1][0, :NB]
+        assert acc[4] == 0.0 and int(acc.sum()) == NB - 1
+        if case == "range":
+            assert torch.equal(ko[0][..., 4], args[2][..., 4]) and torch.equal(ko[1][:, 4], args[3][:, 4])
+
+
+def spd_operands(device, dtype, k, ill, nb=300, seed=15):
+    """(n, n, nb) SPD systems in the lanes layout (NaN in the unread half)
+    and (n, k, nb) right-hand sides, n = 53: random correlated systems with
+    variances from 1e-11 to 10, or the ill-conditioned case of the JAX
+    package's smoother test (base = aaᵀ + 53·I scaled by 10^U(-5.5, 0.5))."""
+    rng = np.random.default_rng(seed)
+    n = 53
+    if ill:
+        a = rng.normal(size=(nb, n, n))
+        base = a @ np.swapaxes(a, 1, 2) + n * np.eye(n)
+        d = 10.0 ** rng.uniform(-5.5, 0.5, n)
+    else:
+        g = rng.normal(size=(nb, n, n))
+        base = g @ np.swapaxes(g, 1, 2) / n + np.eye(n)
+        s = np.sqrt(np.diagonal(base, axis1=1, axis2=2))
+        base = base / (s[:, :, None] * s[:, None, :])
+        d = np.sqrt(10.0 ** rng.uniform(-11.0, 1.0, n))
+    spd = base * d[None, :, None] * d[None, None, :]
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=device).to(dtype)
+    a_t = t(np.transpose(spd, (2, 1, 0)))
+    lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=device), -1)[..., None]
+    return torch.where(lower, float("nan"), a_t).contiguous(), t(np.transpose(rng.normal(size=(nb, n, k)), (1, 2, 0)))
+
+
+def _solve_err(x, ref, a_t):
+    """Max error of D·x over the largest |D·x| of its column and instance,
+    D = √diag A: the equilibrated solve's accuracy is relative in D·x."""
+    d = torch.sqrt(torch.diagonal(a_t, dim1=0, dim2=1).T)[:, None, :]
+    scale = (ref * d).abs().amax(dim=0, keepdim=True)
+    return ((x - ref).abs() * d / scale).max().item()
+
+
+@pytest.mark.parametrize("k,ill", [(1, False), (53, False), (53, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_spd_kernel_matches_plain(device, dtype, k, ill):
+    a_t, b_t = spd_operands(device, dtype, k, ill)
+    ko, po = kernels.solve_spd_lanes_cuda(a_t, b_t), kernels.solve_spd_lanes_plain(a_t, b_t)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ko).all())
+    assert _solve_err(ko, po, a_t) <= LIMIT[dtype]
+
+
+def test_bottom_and_solve_wrappers_launch_and_count(device):
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_ukf as bu
+
+    dtype = torch.float32
+    st, params = bu.init(bu.BottomState(torch.tensor([10.0], device=device), torch.tensor([0.0, 0.0, 1.0], device=device)),
+                         torch.diag(torch.tensor([1.0, 0.05, 0.05], device=device)))
+    bs = bank.replicate(bu.set_velocity(st, torch.tensor([0.5, 0.0, -0.1], device=device)), NB)
+    k7, k8 = puf.cuda_lib.KERNELS["bottom_step"], puf.cuda_lib.KERNELS["solve_spd"]
+    before7, before8 = k7.launches, k8.launches
+    out = bu.predict_bank(bs, params, 0.1)
+    out, info = bu.update_range_bank(out, torch.full((NB, 1), 9.8, device=device), torch.eye(1, device=device) * 0.04,
+                                     torch.tensor([0.0, 0.0, -1.0], device=device), torch.zeros(3, device=device))
+    a_t, b_t = spd_operands(device, dtype, 4, False, nb=NB)
+    spd = torch.where(torch.isnan(a_t), a_t.transpose(0, 1), a_t).permute(2, 1, 0)
+    x = kernels.solve_spd_banked(spd, b_t.permute(2, 0, 1))
+    torch.cuda.synchronize()
+    assert (k7.launches, k8.launches) == (before7 + 2, before8 + 1)
+    assert bool(torch.isfinite(out.cov).all()) and bool(info.accepted.all())
+    assert bool(torch.isfinite(x).all())
+    too_many = [bf.StepUpdate("normal", out.mu.normal, torch.eye(2, device=device))] * (bf.MAX_STEP_UPDATES + 1)
+    with pytest.raises(ValueError, match="MAX_STEP_UPDATES"):
+        bf.step_lanes(bf.to_lanes(out), params, 0.1, too_many)

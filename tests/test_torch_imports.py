@@ -14,8 +14,8 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "import slam_uwv_kalman_filters_tpu_torch\n"
-        "from slam_uwv_kalman_filters_tpu_torch.models import fleet_setup, monte_carlo, pose_driver, "
-        "pose_fused, pose_ukf, pose_update_fused, velocity_fused, velocity_ukf\n"
+        "from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused, bottom_ukf, fleet_setup, monte_carlo, "
+        "pose_driver, pose_fused, pose_smoother, pose_ukf, pose_update_fused, velocity_fused, velocity_ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib, dynamics, geodesy, kernels, "
         "linalg_small, manifolds, ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.parallel import bank\n"
@@ -46,5 +46,7 @@ def test_cpu_tensor_takes_plain_route_without_counting():
     cov = a @ a.transpose(1, 2) + 12 * torch.eye(12, dtype=torch.float64)
     out = kernels.sigma_deltas_banked(cov)
     torch.testing.assert_close(out, kernels.sigma_deltas_plain(cov), rtol=0, atol=0)
+    rhs = torch.randn(5, 12, 3, dtype=torch.float64)
+    torch.testing.assert_close(kernels.solve_spd_banked(cov, rhs), kernels.solve_spd_plain(cov, rhs), rtol=0, atol=0)
     assert all(k.launches == 0 for k in cuda_lib.KERNELS.values())
     assert "lib" not in cuda_lib._STATE  # nothing was built or loaded
