@@ -74,12 +74,21 @@ csrc`` and then, in order:
    the card, backward (K1, K8) each tick; holds the smoothed covariance
    trace to the filtered one and prints both passes' times and the filtered
    and smoothed ATE; then checks and times K1 and K8 on the backward
-   pass's operands, K8 beside ``cholesky_ex`` + ``cholesky_solve``.
+   pass's operands, K8 beside ``cholesky_ex`` + ``cholesky_solve``;
+18. (after the checks of 15) checks K9, the IndirectPoseUKF predict, on
+   perturbed error states, and K10, its marker update with the 12-DOF
+   augmentation, with 1 and 4 corners, shared and per-instance pixels and
+   marker poses, at bank 300, float32 and float64, and that pad lanes stay
+   finite and leave the bank's outputs unchanged;
+19. runs the IndirectPoseUKF bank (bench.py's third small filter: predict +
+   one marker corner, one K9 and one K10 launch) at bank 65 536, float32,
+   30 timed steps, and checks and times K9 and K10 on its operands.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
-share, the fleet ATE, the trajectory differences, the BottomUKF rate, the
-smoother's times and ATE and a JSON object with the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
+share, the fleet ATE, the trajectory differences, the BottomUKF and
+IndirectPoseUKF rates, the smoother's times and ATE and a JSON object with
+the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 
     python3 chip_smoke.py                       # the full run
@@ -109,6 +118,8 @@ TPU_KERNELS = {
     "velocity_step": "slam_uwv_kalman_filters_tpu/models/velocity_fused.py:306",
     "bottom_step": "slam_uwv_kalman_filters_tpu/models/bottom_fused.py:233",
     "solve_spd": "slam_uwv_kalman_filters_tpu/ops/kernels.py:391",
+    "indirect_predict": "slam_uwv_kalman_filters_tpu/models/indirect_fused.py:182",
+    "indirect_markers": "slam_uwv_kalman_filters_tpu/models/indirect_fused.py:283",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
 # bandwidth and float32 outside the tensor cores
@@ -116,7 +127,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # launch counts of the two main paths' timed mission seconds
 _NONE = {"sigma_deltas": 0, "pose_predict": 0, "pose_predict_full": 0, "pose_update_model": 0,
-         "pose_update_tail": 0, "pose_step": 0, "velocity_step": 0, "bottom_step": 0, "solve_spd": 0}
+         "pose_update_tail": 0, "pose_step": 0, "velocity_step": 0, "bottom_step": 0, "solve_spd": 0,
+         "indirect_predict": 0, "indirect_markers": 0}
 SHARED_SECOND = {**_NONE, "pose_predict": 100, "pose_update_model": 118}
 BANKED_SECOND = {**_NONE, "sigma_deltas": 10, "pose_predict_full": 100, "pose_update_model": 108,
                  "pose_update_tail": 10}
@@ -125,9 +137,10 @@ STEPPED_SECOND = {**_NONE, "pose_step": 100, "pose_update_model": 10}
 # float64 is held near rounding; float32 sums 107 sigma points and runs a
 # 53-column factorization in another order than PyTorch's library calls
 LIMITS = {torch.float64: 1e-9, torch.float32: 2e-3}
-# bench.py's small-filter bank (the BottomUKF bank) and the survey smoother's
-# fleet of trajectories
+# bench.py's small-filter bank (the BottomUKF and IndirectPoseUKF banks) and
+# the survey smoother's fleet of trajectories
 BOTTOM_BANK = 65536
+INDIRECT_BANK = 65536
 SMOOTHER_BANK = 256
 
 
@@ -240,6 +253,7 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
     per m) in ``store`` where ``keep(key)``, and count launches per key in
     ``counts`` while the block runs; every launch still goes to the kernel."""
     from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
@@ -269,6 +283,9 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
         (bf, "_bottom_step_lanes",
          recording(bf._bottom_step_lanes, lambda a: f"bottom_step[{'+'.join(('predict',) * a[1] + a[0])}]")),
         (kernels, "solve_spd_lanes_cuda", recording(kernels.solve_spd_lanes_cuda, lambda a: "solve_spd")),
+        (ifu, "_indirect_predict_lanes", recording(ifu._indirect_predict_lanes, lambda a: "indirect_predict")),
+        (ifu, "_indirect_markers_lanes",
+         recording(ifu._indirect_markers_lanes, lambda a: f"indirect_markers[k={a[4].shape[0]}]")),
     )
 
 
@@ -306,6 +323,7 @@ def _rel(out, ref):
 def _pair(name):
     """(kernel wrapper, plain version) of kernel ``name``."""
     from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
@@ -321,6 +339,8 @@ def _pair(name):
         "pose_update_tail": (puf.update_tail_cuda, puf.update_tail_plain),
         "bottom_step": (bf.bottom_step_lanes_cuda, bf.bottom_step_lanes_plain),
         "solve_spd": (kernels.solve_spd_lanes_cuda, kernels.solve_spd_lanes_plain),
+        "indirect_predict": (ifu.indirect_predict_lanes_cuda, ifu.indirect_predict_lanes_plain),
+        "indirect_markers": (ifu.indirect_markers_lanes_cuda, ifu.indirect_markers_lanes_plain),
     }[name]
 
 
@@ -354,10 +374,16 @@ def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> No
             errs["m2"] = max(errs.get("m2", 0.0), _rel(km2, pm2))
             errs["nu"] = max(errs.get("nu", 0.0), _rel(knu, pnu))
         errs["gate_flips"] = float(flips)
-    elif name in ("pose_predict", "pose_predict_full"):
+    elif name in ("pose_predict", "pose_predict_full", "indirect_predict"):
         dtype = ko[0].dtype
         a, n_err = _cov_err(ko[0], po[0], po[0])
         errs = {"abs": a, "cov": n_err, "mu": _rel(ko[1], po[1])}
+    elif name == "indirect_markers":
+        dtype = ko[0].dtype
+        a, n_err = _cov_err(ko[0], po[0], args[0])  # normalized by the prior
+        errs = {"abs": max(a, (ko[1] - po[1]).abs().max().item()), "cov": n_err, "mu": _rel(ko[1], po[1]),
+                "m2": _rel(ko[2], po[2]), "nu": _rel(ko[3], po[3]),
+                "finite": 0.0 if all(bool(torch.isfinite(x).all()) for x in ko) else float("inf")}
     elif name in ("pose_step", "velocity_step"):
         dtype = ko[0].dtype
         if name == "pose_step":  # the updates' prior, the predicted covariance, normalizes
@@ -714,6 +740,29 @@ def _bound(name: str, args: tuple):
         n, k, nb = args[1].shape
         elems = n * (n + 1) // 2 + 2 * n * k
         ops = 2 * n * n + n**3 / 3 + 2 * n * n * k
+    elif name == "indirect_predict":
+        # per instance: cov (lower half) and mu in, cov and mu out (the 38
+        # shared scalars are negligible). Operations (estimate): the 6x6
+        # factor ~100; 13 sigma orientations, each ⊞ (exp with sin, cos,
+        # sqrt; a product; renormalization ~65), log (atan2 ~25) and the
+        # decay ⊞ ~65; 4 Karcher iterations of 13 products and log maps plus
+        # an exp map ~750 each; 13 deviations ~690; ½ΣDDᵀ over 21 entries
+        # ~550; the rotated Q and the means ~160
+        nb = args[0].shape[-1]
+        elems = 21 + 7 + 36 + 7
+        ops = 100 + 13 * 155 + 4 * 750 + 690 + 550 + 160
+    elif name == "indirect_markers":
+        # per instance: cov (lower half), mu, the pose reference, the marker
+        # pose and per corner z, R in; cov, mu and per corner m2, nu out.
+        # Operations per corner (estimate): the 12x12 factor ~700; 25 sigma
+        # points, each two ⊞ maps ~130, two products ~56, three rotations
+        # ~90 and the normalization ~30; 4 Karcher iterations of 25 S² log
+        # maps (cross product, two sqrt, atan2 ~45) plus a basis and an exp
+        # map ~60; 25 deviations ~1125 and the S, C sums ~1500; the tail
+        # ~450 and the corrections ~150
+        nb, k = args[0].shape[-1], args[4].shape[0]
+        elems = 21 + 7 + 7 + 7 + 7 * k + 36 + 7 + 3 * k
+        ops = k * (700 + 25 * 306 + 4 * (25 * 45 + 60) + 1125 + 1500 + 450 + 150)
     else:  # velocity_step
         # per instance: cov (lower half), mu, efforts, gyro, tracker and per
         # update z, R in; cov, mu, tracker and per update m2, acc, nu out.
@@ -1505,6 +1554,136 @@ def phase_bottom_bank(device, nb: int, captured: dict, counts: dict, steps: int 
     return launches, rate, {k: steps for k in counts if k.startswith("bottom_step")}
 
 
+# ---------------------------------------------------------------------------
+# K9 and K10 (the IndirectPoseUKF's predict and marker update) and their path
+# ---------------------------------------------------------------------------
+
+
+def indirect_check_operands(nb: int, dtype, device, gen: torch.Generator, k: int, per_instance: bool,
+                            lanes: int | None = None):
+    """K9 and K10 operands at bank ``nb``: error means moved (orientation
+    errors up to ~0.3 rad), random correlated covariances, pose references
+    and a shared process noise with cross terms; k marker corners 3 m ahead
+    seen from ref ∘ a true bias with 1 px of noise (bearings near the
+    camera's axis, far from the S² equator), shared pixels and marker pose
+    or per instance. ``lanes`` > nb pads in the JAX package's convention.
+    Returns (K9 args, K10 args)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_pose_ukf as ipu
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
+
+    f64 = torch.float64
+    rn = lambda *shape: torch.randn(*shape, generator=gen, dtype=f64, device=device)
+    t = lambda v: torch.tensor(v, dtype=f64, device=device)
+    a = 0.1 * rn(nb, 6, 6)
+    state = ipu.IndirectPoseUKFState(
+        mu=ipu.PoseErrorState(0.2 * rn(nb, 3), mf.quat_exp(0.15 * rn(nb, 3))),
+        cov=a @ a.transpose(1, 2) + torch.diag(t([0.05, 0.04, 0.06, 0.003, 0.002, 0.004])),
+        pose_ref_position=0.5 * rn(nb, 3), pose_ref_orientation=mf.quat_exp(0.1 * rn(nb, 3)))
+    _, params = ipu.init((0.05,) * 3, (0.02,) * 3, 30.0, device=device)
+    qa = 0.01 * rn(6, 6)
+    params = params._replace(process_noise=params.process_noise + qa @ qa.T)
+    corners = t([[-0.15, -0.15, 0.0], [0.15, -0.15, 0.0], [0.15, 0.15, 0.0], [-0.15, 0.15, 0.0]])[:k]
+    mpos, mrot = t([0.3, -0.2, 3.0]), mf.quat_exp(t([0.02, -0.05, 0.1]))
+    if per_instance:
+        mpos, mrot = mpos + 0.05 * rn(nb, 3), mf.so3_boxplus(mrot.expand(nb, 4), 0.02 * rn(nb, 3))
+    cam_p, cam_q, cam = t([0.1, 0.0, 0.05]), mf.quat_exp(t([0.01, -0.02, 0.03])), CameraConfiguration()
+    qi, pi = mf.affine_inv(*mf.affine_mul(state.pose_ref_orientation,
+                                          state.pose_ref_position + t([0.1, -0.05, 0.08]), cam_q, cam_p))
+    f_cam = mf.affine_apply(qi[:, None], pi[:, None], mf.affine_apply(mrot[..., None, :], mpos[..., None, :], corners))
+    px = torch.stack([cam.fx * f_cam[..., 0] / f_cam[..., 2] + cam.cx, cam.fy * f_cam[..., 1] / f_cam[..., 2] + cam.cy],
+                     -1) + rn(nb, k, 2)
+    to = lambda tree: bank.tree_map(lambda x: x.to(dtype), tree)
+    ls = ifu.to_lanes(to(state), lanes=lanes)
+    _, ops = ifu.marker_operands(ls, px if per_instance else px[0], 4.0 * torch.eye(2, dtype=f64, device=device),
+                                 corners, mpos, mrot, 1e-3 * torch.eye(6, dtype=f64, device=device), cam, cam_p, cam_q,
+                                 nb=nb)
+    return (ls.cov_t, ls.mu_t, ifu.predict_scalars(to(params), 0.1, dtype)), ops
+
+
+def phase_checks_indirect(device):
+    """K9 and K10 against their plain versions at bank 300, float32 and
+    float64: K9 on perturbed error states; K10 with 1 and 4 corners, shared
+    and per-instance pixels and marker poses. Then 28 pad lanes (to 328):
+    both kernels' outputs on the bank's 300 lanes are those of the unpadded
+    bank bit for bit, and the pad lanes stay finite."""
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+
+    nb = 300
+    for dtype in (torch.float32, torch.float64):
+        for k, per_instance in ((1, False), (1, True), (4, False), (4, True)):
+            gen = torch.Generator(device=device).manual_seed(41)
+            k9, k10 = indirect_check_operands(nb, dtype, device, gen, k, per_instance)
+            form = "per-instance" if per_instance else "shared"
+            if (k, per_instance) == (1, False):
+                compare("indirect_predict", "indirect_predict", k9)
+            compare("indirect_markers", f"indirect_markers[k={k},{form}]", k10)
+        gen = torch.Generator(device=device).manual_seed(41)
+        padded = indirect_check_operands(nb, dtype, device, gen, 4, True, lanes=nb + 28)
+        outs = {"predict": (ifu.indirect_predict_lanes_cuda(*k9), ifu.indirect_predict_lanes_cuda(*padded[0])),
+                "markers": (ifu.indirect_markers_lanes_cuda(*k10), ifu.indirect_markers_lanes_cuda(*padded[1]))}
+        torch.cuda.synchronize()
+        for label, (plain_bank, pad_bank) in outs.items():
+            same = all(torch.equal(a, b[..., :nb]) for a, b in zip(plain_bank, pad_bank))
+            finite = all(bool(torch.isfinite(b[..., nb:]).all()) for b in pad_bank)
+            log(f"check indirect_{label} pad lanes {str(dtype).split('.')[-1]}: bank unchanged={same} "
+                f"pads finite={finite}")
+            if not (same and finite):
+                raise AssertionError(f"indirect_{label}: pad lanes changed the bank or went non-finite")
+
+
+def phase_indirect_bank(device, nb: int, captured: dict, counts: dict, steps: int = 30):
+    """The seventh main path: bench.py's IndirectPoseUKF step (BASELINE
+    configs[2]: ``init((0.05,)*3, (0.02,)*3, 30)``, predict(0.1), then one
+    marker corner: pixel (330, 236) with covariance 4·I of the feature (0.1,
+    0.1, 0) of a marker at (2, 0, 1) with identity orientation and pose
+    covariance 1e-4·I, the camera at the body origin, a default camera) as
+    one K9 and one K10 launch per step on lanes state at bank ``nb``,
+    float32: one warm step that records the operands, then ``steps`` timed
+    steps between a zeroing and a reading of the counters."""
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_pose_ukf as ipu
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
+
+    dtype = torch.float32
+    state, params = ipu.init((0.05,) * 3, (0.02,) * 3, 30.0, dtype=dtype, device=device)
+    bs = bank.replicate(state, nb)
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    marker = (t([[330.0, 236.0]]), 4.0 * torch.eye(2, dtype=dtype, device=device)[None], t([[0.1, 0.1, 0.0]]),
+              t([2.0, 0.0, 1.0]), t([1.0, 0.0, 0.0, 0.0]), 1e-4 * torch.eye(6, dtype=dtype, device=device),
+              CameraConfiguration(), torch.zeros(3, dtype=dtype, device=device), t([1.0, 0.0, 0.0, 0.0]))
+
+    def step(ls):
+        return ifu.update_markers_lanes(ifu.predict_lanes(ls, params, 0.1), *marker)[0]
+
+    ls = ifu.to_lanes(bs)
+    with capture_operands(captured, counts, keep=lambda key: key.startswith("indirect_")):
+        ls = step(ls)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ls = step(ls)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    rate = nb * steps / seconds
+    log(f"IndirectPoseUKF bank: bank={nb} float32 {steps} steps filter-steps/s={rate:.6e} seconds={seconds:.6f} "
+        f"launches={launches}")
+    if launches != {**_NONE, "indirect_predict": steps, "indirect_markers": steps}:
+        raise AssertionError(f"IndirectPoseUKF bank launched {launches}")
+    out = ifu.from_lanes(ls, bs)
+    unit = (out.mu.orientation_error.norm(dim=1) - 1.0).abs().max().item()
+    if not (bool(torch.isfinite(out.cov).all()) and bool(torch.isfinite(out.mu.position_error).all())
+            and bool((torch.diagonal(out.cov, dim1=1, dim2=2) > 0).all()) and unit < 1e-5):
+        raise AssertionError(f"IndirectPoseUKF bank: non-finite or non-positive covariance, or |q| − 1 = {unit:.1e}")
+    return launches, rate, {k: steps for k in counts if k.startswith("indirect_")}
+
+
 def survey_inputs(spec, nb: int, gen: torch.Generator):
     """The fleet survey's schedule for a bank of ``nb`` trajectories, (T, nb,
     …): every stream with its own noise per trajectory and tick, drawn on the
@@ -1640,6 +1819,7 @@ def main() -> int:
     phase_checks_banked(device)
     phase_checks_steps(device)
     phase_checks_bottom_solve(device)
+    phase_checks_indirect(device)
     captured, counts, stats = {}, {}, {}
     ls, like, params, meas, shared, rate, mission_counts = phase_mission(device, args.bank, captured, counts)
     generic = phase_generic(ls, like, params, meas, captured, counts)
@@ -1676,6 +1856,11 @@ def main() -> int:
                                       1e3 * BOTTOM_BANK * 30 / rate_bottom, stats))
     del captured
     captured, counts = {}, {}
+    indirect, rate_indirect, mission_counts = phase_indirect_bank(device, INDIRECT_BANK, captured, counts)
+    times.update(phase_mission_shapes("IndirectPoseUKF bank's 30 steps", captured, counts, mission_counts,
+                                      1e3 * INDIRECT_BANK * 30 / rate_indirect, stats))
+    del captured
+    captured, counts = {}, {}
     smoother_launches, smoother = phase_smoother(device, SMOOTHER_BANK, args.smoother_seconds, captured, counts)
     # K1 and K8 on the backward pass's operands; the table keeps K1's time on
     # the mission's operands above and K8's from here
@@ -1694,6 +1879,7 @@ def main() -> int:
         "shared_mission_second": shared, "banked_mission_second": banked, "stepped_mission_second": stepped,
         "online_latency": latency_launches, "online_estimator": estimator_launches,
         "velocity_bank": velocity, "bottom_bank": bottom, "survey_smoother": smoother_launches,
+        "indirect_bank": indirect,
     }
     missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
     if missing:
@@ -1720,7 +1906,8 @@ def main() -> int:
         "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
         "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
-        "bottom_bank": BOTTOM_BANK, "survey_smoother": smoother,
+        "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,
+        "survey_smoother": smoother,
         "dtype": "float32", "device_idle_share": idle, "fleet_ate": fleet, "card": smi,
         "wall_s": time.perf_counter() - t_start}
     log(json.dumps(table))

@@ -90,8 +90,9 @@ __device__ __forceinline__ void s2_boxminus(const T (&y)[3], const T (&x)[3], co
 }
 
 // equal-weight mean of K points seeded from point 0, a fixed ITERS
-// iterations of m ← m ⊞ mean_i(p_i ⊟ m)
-template <typename T, int K, int ITERS>
+// iterations of m ← m ⊞ mean_i(p_i ⊟ m); UNROLL is the unroll factor of the
+// loop over the points (all of them by default; 1 keeps a long loop rolled)
+template <typename T, int K, int ITERS, int UNROLL = K>
 __device__ __forceinline__ void s2_karcher_mean(const T (&pts)[K][3], T (&m)[3]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) m[i] = pts[0][i];
@@ -100,7 +101,7 @@ __device__ __forceinline__ void s2_karcher_mean(const T (&pts)[K][3], T (&m)[3])
   for (int it = 0; it < ITERS; ++it) {
     const S2Basis<T> B = s2_basis(m);
     T s0 = T(0), s1 = T(0);
-#pragma unroll
+#pragma unroll (UNROLL)
     for (int p = 0; p < K; ++p) {
       T d0, d1;
       s2_boxminus(pts[p], m, B, d0, d1);

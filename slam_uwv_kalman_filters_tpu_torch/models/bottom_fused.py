@@ -195,13 +195,14 @@ def _s2_boxminus(y, x, basis):
 
 
 def _s2_karcher_mean(pts):
-    """Fixed-iteration mean of the (7, B) point components ``pts``, seeded
-    from point 0."""
+    """Fixed-iteration mean of the (K, B) point components ``pts`` (K = 7
+    here, 25 for the IndirectPoseUKF's bearings), seeded from point 0."""
     m = tuple(p[0] for p in pts)
+    inv_k = 1.0 / pts[0].shape[0]
     for _ in range(MEAN_ITERS):
         basis = _s2_basis(m)
         d0, d1 = _s2_boxminus(pts, m, basis)
-        m = _s2_boxplus(m, _seq_sum(d0) * (1.0 / NSIG), _seq_sum(d1) * (1.0 / NSIG), basis)
+        m = _s2_boxplus(m, _seq_sum(d0) * inv_k, _seq_sum(d1) * inv_k, basis)
     return m
 
 

@@ -72,16 +72,34 @@ def _offered(inputs: drv.PoseInputs) -> dict:
             for flag in _STREAMS if getattr(inputs, flag) is not None}
 
 
+def _check_shared_dt(inputs: drv.PoseInputs) -> None:
+    """Raise ``ValueError`` where a bank's (T, B) dt differs across its
+    trajectories at some tick: the bank forms predict every trajectory with
+    trajectory 0's interval (``pose_step_bank`` takes ``inp.dt[0]``). One
+    host read of the schedule."""
+    dt = inputs.dt.reshape(inputs.dt.shape[0], -1)
+    varies = (dt != dt[:, :1]).any(-1)
+    if bool(varies.any()):
+        tick = int(varies.nonzero()[0, 0])
+        raise ValueError(
+            f"a smoothed bank needs one dt per tick across its trajectories; at tick {tick} it spans "
+            f"[{float(dt[tick].min())}, {float(dt[tick].max())}] — smooth such trajectories one at a time"
+        )
+
+
 def smooth_backward(filtered_mu: pukf.PoseState, filtered_cov: torch.Tensor, params: pukf.PoseUKFParams,
                     inputs: drv.PoseInputs):
     """Backward URTS pass over stored filtered posteriors, the post-update
     state of every tick on a leading (T,) axis — (T, …) for one
     trajectory, (T, B, …) for a bank, with ``inputs`` shaped as the forward
     pass consumed them. The k → k+1 transition re-uses tick k+1's rotation
-    rate and dt (a bank's dt is shared, ``inputs.dt[k + 1][0]``, as
-    ``pose_step_bank`` takes it). Returns (smoothed_mu, smoothed_cov) shaped
-    like the inputs."""
+    rate and dt. A bank's dt must be shared across its trajectories at every
+    tick (``inputs.dt[k + 1][0]`` is taken, as ``pose_step_bank`` takes it);
+    a dt that differs raises ``ValueError``. Returns (smoothed_mu,
+    smoothed_cov) shaped like the inputs."""
     solo = filtered_cov.ndim == 3
+    if not solo:
+        _check_shared_dt(inputs)
     if solo:
         filtered_mu, filtered_cov = tree_map(lambda a: a[:, None], filtered_mu), filtered_cov[:, None]
     n_ticks = filtered_cov.shape[0]
@@ -113,9 +131,12 @@ def run_trajectory_smoothed(state: pukf.PoseUKFState, params: pukf.PoseUKFParams
                             inputs: drv.PoseInputs) -> SmoothedTrajectory:
     """Forward filter + backward smooth over a packed (T,)-tick schedule: one
     trajectory (``state.cov`` (53, 53), ``pose_step``) or a bank (``state.cov``
-    (B, 53, 53), inputs (T, B, …), ``pose_step_bank``)."""
+    (B, 53, 53), inputs (T, B, …), ``pose_step_bank``). A bank whose dt
+    differs across its trajectories at some tick raises ``ValueError``."""
     n_ticks = inputs.dt.shape[0]
     step = drv.pose_step_bank if state.cov.ndim == 3 else drv.pose_step
+    if state.cov.ndim == 3:
+        _check_shared_dt(inputs)
     offered = _offered(inputs)
     mus = tree_map(lambda a: a.new_empty((n_ticks, *a.shape)), state.mu)
     covs = state.cov.new_empty((n_ticks, *state.cov.shape))

@@ -114,6 +114,16 @@ KERNELS = {
         # a_t, b_t, out_t, scratch, n, k, nb, stream
         (_P, _P, _P, _P, _I32, _I32, _I64, _P),
     ),
+    "indirect_predict": Kernel(
+        "indirect_predict", "slam_indirect_predict", "csrc/indirect_predict.cu",
+        # cov_t, mu_t, scal, cov_out, mu_out, nb, stream
+        (_P, _P, _P, _P, _P, _I64, _P),
+    ),
+    "indirect_markers": Kernel(
+        "indirect_markers", "slam_indirect_markers", "csrc/indirect_markers.cu",
+        # cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal, k, cov_out, mu_out, m2, nu_t, nb, stream
+        (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _P),
+    ),
 }
 
 

@@ -41,6 +41,9 @@ __all__ = [
     "quat_from_euler_zyx",
     "so3_boxplus",
     "so3_boxminus",
+    "affine_mul",
+    "affine_inv",
+    "affine_apply",
     "s2_normalize",
     "s2_tangent_basis",
     "s2_boxplus",
@@ -203,6 +206,27 @@ def so3_boxplus(q: torch.Tensor, delta: torch.Tensor, scale=1.0) -> torch.Tensor
 def so3_boxminus(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
     """a ⊟ b = Log(b⁻¹ ⊗ a); exact inverse of so3_boxplus."""
     return quat_log(quat_mul(quat_conj(qb), qa))
+
+
+# ---------------------------------------------------------------------------
+# Rigid transforms as (quaternion, translation) pairs.
+# ---------------------------------------------------------------------------
+
+
+def affine_mul(qa: torch.Tensor, pa: torch.Tensor, qb: torch.Tensor, pb: torch.Tensor):
+    """(qa, pa) ∘ (qb, pb): compose rigid transforms a·b."""
+    return quat_mul(qa, qb), pa + quat_rotate(qa, pb)
+
+
+def affine_inv(q: torch.Tensor, p: torch.Tensor):
+    """(q, p)⁻¹."""
+    qi = quat_conj(q)
+    return qi, -quat_rotate(qi, p)
+
+
+def affine_apply(q: torch.Tensor, p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(q, p)·v = R(q)v + p."""
+    return quat_rotate(q, v) + p
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 :func:`from_numpy` turns a NamedTuple tree whose leaves are numpy arrays
 (for instance a JAX package ``PoseUKFState``, ``PoseUKFParams``,
 ``PoseInputs``, ``FleetMissionSpec``, ``VelocityUKFState``,
-``VelocityUKFParams``, ``BottomUKFState``, ``BottomUKFParams`` or a
-``SmoothedTrajectory`` after ``jax.tree.map(np.asarray, …)``)
+``VelocityUKFParams``, ``BottomUKFState``, ``BottomUKFParams``,
+``IndirectPoseUKFState``, ``IndirectPoseUKFParams``, ``IndirectLanesState`` or
+a ``SmoothedTrajectory`` after ``jax.tree.map(np.asarray, …)``)
 into the port's NamedTuple of the same name, field by field; :func:`to_numpy`
 turns a port tree into numpy leaves. ``None`` leaves (absent sensor streams)
 stay ``None``, and strings (a step update's model name) stay strings. This
@@ -25,8 +26,8 @@ __all__ = ["from_numpy", "to_numpy"]
 
 
 def _port_types() -> dict:
-    from ..models import (bottom_fused, bottom_ukf, monte_carlo, pose_driver, pose_fused, pose_smoother, pose_ukf,
-                          velocity_fused, velocity_ukf)
+    from ..models import (bottom_fused, bottom_ukf, indirect_fused, indirect_pose_ukf, monte_carlo, pose_driver,
+                          pose_fused, pose_smoother, pose_ukf, velocity_fused, velocity_ukf)
     from ..ops import dynamics, geodesy, ukf
 
     types = (
@@ -38,6 +39,9 @@ def _port_types() -> dict:
         velocity_fused.VelLanesState,
         bottom_ukf.BottomState, bottom_ukf.BottomUKFParams, bottom_ukf.BottomUKFState, bottom_fused.BottomLanesState,
         pose_smoother.SmoothedTrajectory,
+        indirect_pose_ukf.PoseErrorState, indirect_pose_ukf.PoseErrorStateWithMarker,
+        indirect_pose_ukf.IndirectPoseUKFParams, indirect_pose_ukf.IndirectPoseUKFState,
+        indirect_fused.IndirectLanesState,
     )
     return {t.__name__: t for t in types}
 

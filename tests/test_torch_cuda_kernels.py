@@ -21,7 +21,9 @@ same for K6 across the move of its Crout factor, substitutions and Kalman
 tail into ``csrc/small_ukf.cuh``. The module imports at its top only what
 those trees also had (later modules inside the tests), so the same functions
 can hash their builds. K7 (the BottomUKF step) and K8 (the banked SPD solve)
-are held to their plain versions, K8's error measured on D·X, D = √diag A.
+are held to their plain versions, K8's error measured on D·X, D = √diag A;
+so are K9 and K10 (the IndirectPoseUKF's predict and marker update) at bank
+300, with one and four corners, shared and per-instance marker data.
 """
 
 import hashlib
@@ -749,3 +751,100 @@ def test_bottom_and_solve_wrappers_launch_and_count(device):
     too_many = [bf.StepUpdate("normal", out.mu.normal, torch.eye(2, device=device))] * (bf.MAX_STEP_UPDATES + 1)
     with pytest.raises(ValueError, match="MAX_STEP_UPDATES"):
         bf.step_lanes(bf.to_lanes(out), params, 0.1, too_many)
+
+
+# ---------------------------------------------------------------------------
+# K9 (the IndirectPoseUKF predict) and K10 (its marker update)
+# ---------------------------------------------------------------------------
+
+
+def indirect_operands(device, dtype, nb=300, k=4, per_instance=False, lanes=None, seed=21):
+    """A bank of IndirectPoseUKF filters (moved error means, orientation
+    errors up to ~0.3 rad, random correlated covariances, pose references)
+    with a shared process noise, and k marker corners seen from ref ∘ a true
+    bias with 1 px of noise: shared pixels and marker pose, or per instance.
+    ``lanes`` > nb pads. Returns (K9 args, K10 args)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_pose_ukf as ipu
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
+
+    f64 = torch.float64
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, dtype=f64, device=device)
+    t = lambda v: torch.tensor(v, dtype=f64, device=device)
+    a = rn(nb, 6, 6) * 0.1
+    state = ipu.IndirectPoseUKFState(
+        mu=ipu.PoseErrorState(rn(nb, 3) * 0.2, mf.quat_exp(rn(nb, 3) * 0.15)),
+        cov=a @ a.transpose(1, 2) + torch.diag(t([0.05, 0.04, 0.06, 0.003, 0.002, 0.004])),
+        pose_ref_position=rn(nb, 3) * 0.5, pose_ref_orientation=mf.quat_exp(rn(nb, 3) * 0.1))
+    _, params = ipu.init((0.05,) * 3, (0.02,) * 3, 30.0, device=device)
+    qa = rn(6, 6) * 0.01
+    params = params._replace(process_noise=params.process_noise + qa @ qa.T)
+    corners = t([[-0.15, -0.15, 0.0], [0.15, -0.15, 0.0], [0.15, 0.15, 0.0], [-0.15, 0.15, 0.0]])[:k]
+    mpos, mrot = t([0.3, -0.2, 3.0]), mf.quat_exp(t([0.02, -0.05, 0.1]))
+    if per_instance:
+        mpos, mrot = mpos + rn(nb, 3) * 0.05, mf.so3_boxplus(mrot.expand(nb, 4), rn(nb, 3) * 0.02)
+    cam_p, cam_q, cam = t([0.1, 0.0, 0.05]), mf.quat_exp(t([0.01, -0.02, 0.03])), CameraConfiguration()
+    # the pixels of the corners from the true camera pose ref ∘ bias ∘ extrinsics
+    body = mf.affine_mul(state.pose_ref_orientation, state.pose_ref_position + t([0.1, -0.05, 0.08]),
+                         cam_q, cam_p)
+    qi, pi = mf.affine_inv(*body)
+    f_nav = mf.affine_apply(mrot[..., None, :], mpos[..., None, :], corners)
+    f_cam = mf.affine_apply(qi[:, None], pi[:, None], f_nav)
+    px = torch.stack([cam.fx * f_cam[..., 0] / f_cam[..., 2] + cam.cx, cam.fy * f_cam[..., 1] / f_cam[..., 2] + cam.cy],
+                     -1) + rn(nb, k, 2)
+    feats = px if per_instance else px[0]
+    to = lambda tree: bank.tree_map(lambda x: x.to(dtype), tree)
+    ls = ifu.to_lanes(to(state), lanes=lanes)
+    _, ops = ifu.marker_operands(ls, feats, torch.eye(2, dtype=f64, device=device) * 4.0, corners, mpos, mrot,
+                                 torch.eye(6, dtype=f64, device=device) * 1e-3, cam, cam_p, cam_q, nb=nb)
+    return (ls.cov_t, ls.mu_t, ifu.predict_scalars(to(params), 0.1, dtype)), ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_indirect_predict_kernel_matches_plain(device, dtype):
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+
+    args, _ = indirect_operands(device, dtype)
+    ko, po = ifu.indirect_predict_lanes_cuda(*args), ifu.indirect_predict_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert _cov_err(ko[0], po[0], po[0]) <= LIMIT[dtype]
+    assert _rel(ko[1], po[1]) <= LIMIT[dtype]
+
+
+@pytest.mark.parametrize("k,per_instance", [(1, False), (4, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_indirect_markers_kernel_matches_plain(device, dtype, k, per_instance):
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+
+    _, args = indirect_operands(device, dtype, k=k, per_instance=per_instance)
+    ko, po = ifu.indirect_markers_lanes_cuda(*args), ifu.indirect_markers_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in ko)
+    assert _cov_err(ko[0], po[0], args[0]) <= LIMIT[dtype]  # normalized by the prior
+    assert max(_rel(ko[i], po[i]) for i in (1, 2, 3)) <= LIMIT[dtype]
+
+
+def test_indirect_wrappers_launch_and_count(device):
+    """predict_bank and update_markers_bank on a CUDA bank launch K9 and K10
+    once each; a banked τ sweep takes the generic path (no K9)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_pose_ukf as ipu
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
+
+    state, params = ipu.init((0.05,) * 3, (0.02,) * 3, 30.0, dtype=torch.float32, device=device)
+    bs = bank.replicate(state, NB)
+    k9, k10 = puf.cuda_lib.KERNELS["indirect_predict"], puf.cuda_lib.KERNELS["indirect_markers"]
+    before9, before10 = k9.launches, k10.launches
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    out = ipu.predict_bank(bs, params, 0.1)
+    out, info = ipu.update_markers_bank(out, t([[330.0, 236.0]]), torch.eye(2, device=device)[None] * 4.0,
+                                        t([[0.1, 0.1, 0.0]]), t([2.0, 0.0, 1.0]), t([1.0, 0.0, 0.0, 0.0]),
+                                        torch.eye(6, device=device) * 1e-4, CameraConfiguration(),
+                                        torch.zeros(3, device=device), t([1.0, 0.0, 0.0, 0.0]))
+    torch.cuda.synchronize()
+    assert (k9.launches, k10.launches) == (before9 + 1, before10 + 1)
+    assert info.mahalanobis2.shape == (NB, 1) and bool(torch.isfinite(out.cov).all())
+    ipu.predict_bank(bs, params._replace(orientation_error_tau=torch.full((NB,), 30.0, device=device)), 0.1)
+    torch.cuda.synchronize()
+    assert k9.launches == before9 + 1

@@ -190,3 +190,25 @@ def test_solo_trajectory_matches_the_bank_on_the_cpu_route(smoothed):
     np.testing.assert_allclose(solo.smoothed_cov.numpy(), ref_cov[:, 1].numpy(), rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(solo.smoothed_mu.position.numpy(), ref_mu.position[:, 1].numpy(), rtol=1e-9,
                                atol=1e-12)
+
+
+def test_bank_with_a_dt_that_differs_across_trajectories_raises(smoothed):
+    """A bank predicts every trajectory with trajectory 0's interval, so a
+    schedule whose dt differs across the bank at one tick raises from both
+    passes; the shared-dt bank above still runs (and matches JAX there)."""
+    out, _, _ = smoothed
+    states, params, inputs, _ = _survey()
+    short = jax.tree.map(lambda a: a[:6], inputs)
+    inp = _port_inputs(short, 2)
+    dt = inp.dt.clone()
+    dt[3, 1] = 0.05
+    ragged = inp._replace(dt=dt)
+    bank = jax.tree.map(lambda *a: np.stack(a), *[np_tree(s) for s in states])
+    with pytest.raises(ValueError, match="one dt per tick"):
+        tsm.run_trajectory_smoothed(pt(bank), pt(np_tree(params)), ragged)
+    with pytest.raises(ValueError, match="at tick 3"):
+        tsm.smooth_backward(tree_map(lambda a: a[:6], out.filtered_mu), out.filtered_cov[:6],
+                            pt(np_tree(params)), ragged)
+    mu, cov = tsm.smooth_backward(tree_map(lambda a: a[:6], out.filtered_mu), out.filtered_cov[:6],
+                                  pt(np_tree(params)), inp)
+    assert bool(torch.isfinite(cov).all()) and bool(torch.isfinite(mu.position).all())
