@@ -82,13 +82,27 @@ csrc`` and then, in order:
    finite and leave the bank's outputs unchanged;
 19. runs the IndirectPoseUKF bank (bench.py's third small filter: predict +
    one marker corner, one K9 and one K10 launch) at bank 65 536, float32,
-   30 timed steps, and checks and times K9 and K10 on its operands.
+   30 timed steps, and checks and times K9 and K10 on its operands;
+20. (after the checks of 18) checks K11, the PoseUKF visual-marker update
+   with the 59-DOF augmentation, with 1 and 4 corners, shared and
+   per-instance pixels and marker poses, at bank 300, float32 and float64,
+   and that 28 pad lanes stay finite and leave the bank's outputs unchanged;
+21. runs the marker-aided mission second: the shared mission second of 3
+   plus one 4-corner marker tick (1 Hz, one K11 launch) at the fleet bank,
+   float32, warm then timed (100 K2, 118 K3, 1 K11), and checks and times
+   K11 on its operands;
+22. runs the marker trajectory guard: 1000 ticks at bank 256 of the mission
+   schedule plus a 4-corner marker sighting every 100 ticks through
+   ``pose_driver.run_trajectory_bank_lanes``, the float32 kernels against
+   the float64 plain path on the card, and holds the marker NIS finite on
+   the sighting ticks and 0 elsewhere.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
 share, the fleet ATE, the trajectory differences, the BottomUKF and
-IndirectPoseUKF rates, the smoother's times and ATE and a JSON object with
-the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
+IndirectPoseUKF rates, the smoother's times and ATE, the marker-aided rate
+and the marker trajectory's differences, each new phase's seconds, and a
+JSON object with the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 
     python3 chip_smoke.py                       # the full run
@@ -120,6 +134,7 @@ TPU_KERNELS = {
     "solve_spd": "slam_uwv_kalman_filters_tpu/ops/kernels.py:391",
     "indirect_predict": "slam_uwv_kalman_filters_tpu/models/indirect_fused.py:182",
     "indirect_markers": "slam_uwv_kalman_filters_tpu/models/indirect_fused.py:283",
+    "pose_markers": "slam_uwv_kalman_filters_tpu/models/pose_marker_fused.py:93",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
 # bandwidth and float32 outside the tensor cores
@@ -128,8 +143,9 @@ F32_OPS_PER_S = 67e12
 # launch counts of the two main paths' timed mission seconds
 _NONE = {"sigma_deltas": 0, "pose_predict": 0, "pose_predict_full": 0, "pose_update_model": 0,
          "pose_update_tail": 0, "pose_step": 0, "velocity_step": 0, "bottom_step": 0, "solve_spd": 0,
-         "indirect_predict": 0, "indirect_markers": 0}
+         "indirect_predict": 0, "indirect_markers": 0, "pose_markers": 0}
 SHARED_SECOND = {**_NONE, "pose_predict": 100, "pose_update_model": 118}
+MARKER_SECOND = {**SHARED_SECOND, "pose_markers": 1}
 BANKED_SECOND = {**_NONE, "sigma_deltas": 10, "pose_predict_full": 100, "pose_update_model": 108,
                  "pose_update_tail": 10}
 STEPPED_SECOND = {**_NONE, "pose_step": 100, "pose_update_model": 10}
@@ -137,11 +153,20 @@ STEPPED_SECOND = {**_NONE, "pose_step": 100, "pose_update_model": 10}
 # float64 is held near rounding; float32 sums 107 sigma points and runs a
 # 53-column factorization in another order than PyTorch's library calls
 LIMITS = {torch.float64: 1e-9, torch.float32: 2e-3}
+# K11's: its plain version in float32 lands up to 3.5e-4 from its float64
+# self (the NIS of the marker-aided second's operands at bank 128; 2.4e-4 on
+# the checks' operands; measured on the CPU): two float32 versions may sit
+# that far on opposite sides, and 3× margin on that gives 2.1e-3
+MARKER_LIMITS = {torch.float64: 1e-9, torch.float32: 2.1e-3}
 # bench.py's small-filter bank (the BottomUKF and IndirectPoseUKF banks) and
 # the survey smoother's fleet of trajectories
 BOTTOM_BANK = 65536
 INDIRECT_BANK = 65536
 SMOOTHER_BANK = 256
+# the visual marker of tests/test_full_mission.py: four corners of a 0.3 m
+# square, a camera whose optical axis is body +x, a 1e-6·I pose prior
+MARKER_CORNERS = ((0.15, 0.15, 0.0), (-0.15, 0.15, 0.0), (-0.15, -0.15, 0.0), (0.15, -0.15, 0.0))
+MARKER_CAM_Q = (0.5, -0.5, 0.5, -0.5)
 
 
 def log(msg: str) -> None:
@@ -242,10 +267,12 @@ def patched(*swaps):
 def plain_route():
     """Route the lanes entry points to the plain versions, on any device."""
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
 
     return patched((pf, "_pose_predict_lanes", pf.predict_lanes_plain),
-                   (puf, "_pose_update_model_lanes", puf.update_model_lanes_plain))
+                   (puf, "_pose_update_model_lanes", puf.update_model_lanes_plain),
+                   (pmf, "_pose_markers_lanes", pmf.pose_markers_lanes_plain))
 
 
 def capture_operands(store: dict, counts: dict, keep=lambda key: True):
@@ -255,6 +282,7 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
     from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
     from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
     from slam_uwv_kalman_filters_tpu_torch.ops import kernels
@@ -286,6 +314,7 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
         (ifu, "_indirect_predict_lanes", recording(ifu._indirect_predict_lanes, lambda a: "indirect_predict")),
         (ifu, "_indirect_markers_lanes",
          recording(ifu._indirect_markers_lanes, lambda a: f"indirect_markers[k={a[4].shape[0]}]")),
+        (pmf, "_pose_markers_lanes", recording(pmf._pose_markers_lanes, lambda a: f"pose_markers[k={a[3].shape[0]}]")),
     )
 
 
@@ -325,6 +354,7 @@ def _pair(name):
     from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
     from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
     from slam_uwv_kalman_filters_tpu_torch.ops import kernels
@@ -341,6 +371,7 @@ def _pair(name):
         "solve_spd": (kernels.solve_spd_lanes_cuda, kernels.solve_spd_lanes_plain),
         "indirect_predict": (ifu.indirect_predict_lanes_cuda, ifu.indirect_predict_lanes_plain),
         "indirect_markers": (ifu.indirect_markers_lanes_cuda, ifu.indirect_markers_lanes_plain),
+        "pose_markers": (pmf.pose_markers_lanes_cuda, pmf.pose_markers_lanes_plain),
     }[name]
 
 
@@ -378,12 +409,14 @@ def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> No
         dtype = ko[0].dtype
         a, n_err = _cov_err(ko[0], po[0], po[0])
         errs = {"abs": a, "cov": n_err, "mu": _rel(ko[1], po[1])}
-    elif name == "indirect_markers":
+    elif name in ("indirect_markers", "pose_markers"):
         dtype = ko[0].dtype
         a, n_err = _cov_err(ko[0], po[0], args[0])  # normalized by the prior
+        # K11 writes the valid half of its covariance only
+        outs = (_valid(ko[0]) if name == "pose_markers" else ko[0], *ko[1:])
         errs = {"abs": max(a, (ko[1] - po[1]).abs().max().item()), "cov": n_err, "mu": _rel(ko[1], po[1]),
                 "m2": _rel(ko[2], po[2]), "nu": _rel(ko[3], po[3]),
-                "finite": 0.0 if all(bool(torch.isfinite(x).all()) for x in ko) else float("inf")}
+                "finite": 0.0 if all(bool(torch.isfinite(x).all()) for x in outs) else float("inf")}
     elif name in ("pose_step", "velocity_step"):
         dtype = ko[0].dtype
         if name == "pose_step":  # the updates' prior, the predicted covariance, normalizes
@@ -420,10 +453,10 @@ def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> No
         flips = int(((ko[3] != po[3]) & ~near).sum().item())
         errs = {"abs": a, "cov": n_err, "mu": _rel(ko[1], po[1]), "m2": _rel(ko[2], po[2]),
                 "nu": _rel(ko[4], po[4]), "gate_flips": float(flips)}
-    limit = LIMITS[dtype]
+    limit = (MARKER_LIMITS if name == "pose_markers" else LIMITS)[dtype]
     ok = max(v for k, v in errs.items() if k != "abs") <= limit
     log(f"check {label} {str(dtype).split('.')[-1]}: "
-        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" limit={limit:.0e} {'ok' if ok else 'FAIL'}")
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" limit={limit:.1e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label} ({dtype}) disagrees with its plain version: {errs}")
     if stats is not None and dtype == torch.float32:
@@ -763,6 +796,21 @@ def _bound(name: str, args: tuple):
         nb, k = args[0].shape[-1], args[4].shape[0]
         elems = 21 + 7 + 7 + 7 + 7 * k + 36 + 7 + 3 * k
         ops = k * (700 + 25 * 306 + 4 * (25 * 45 + 60) + 1125 + 1500 + 450 + 150)
+    elif name == "pose_markers":
+        # per instance: cov (valid half), mu, the marker pose and per corner
+        # z, R in; cov (valid half), mu and per corner m2, nu out (the 43 +
+        # 3k shared scalars are negligible). Operations per corner: the
+        # equilibrated 59x59 factor 59³/3 + 2·59²; 119 bearing evaluations,
+        # each two ⊞ maps ~130, a product ~28, three rotations ~90 and the
+        # normalization ~20 (estimate); 4 Karcher iterations of 119 S² log
+        # maps ~45 plus a basis and an exp map ~60, then 119 deviations ~45
+        # and the S sums ~6 each (estimate); C 2·59·60 and the gain ~4·59;
+        # the correction ~4·59 + two ⊞ ~130; the downdate 2·59·60
+        nb, k = args[0].shape[-1], args[3].shape[0]
+        m_n = 59
+        elems = half + 54 + 7 + 7 * k + half + 54 + 3 * k
+        ops = k * (m_n**3 / 3 + 2 * m_n * m_n + 119 * 268 + 4 * (119 * 45 + 60) + 119 * 51
+                   + 2 * m_n * (m_n + 1) + 8 * m_n + 130 + 2 * m_n * (m_n + 1))
     else:  # velocity_step
         # per instance: cov (lower half), mu, efforts, gyro, tracker and per
         # update z, R in; cov, mu, tracker and per update m2, acc, nu out.
@@ -1684,6 +1732,250 @@ def phase_indirect_bank(device, nb: int, captured: dict, counts: dict, steps: in
     return launches, rate, {k: steps for k in counts if k.startswith("indirect_")}
 
 
+# ---------------------------------------------------------------------------
+# K11 (the PoseUKF visual-marker update) and its paths
+# ---------------------------------------------------------------------------
+
+
+def marker_pixels(pos, q, gen: torch.Generator, noise: float, mpos, mrot, cam_p, cam_q):
+    """(..., 4, 2) pinhole pixels of the four marker corners seen from the
+    body poses ``pos`` (..., 3) / ``q`` (..., 4) through the camera
+    extrinsics, plus ``noise`` px of Gaussian noise drawn from ``gen``."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
+
+    cam = CameraConfiguration()
+    corners = torch.tensor(MARKER_CORNERS, dtype=pos.dtype, device=pos.device)
+    qi, pi = mf.affine_inv(*mf.affine_mul(q, pos, cam_q, cam_p))
+    f_cam = mf.affine_apply(qi[..., None, :], pi[..., None, :], mf.affine_apply(mrot[..., None, :], mpos[..., None, :],
+                                                                                 corners))
+    px = torch.stack([cam.fx * f_cam[..., 0] / f_cam[..., 2] + cam.cx, cam.fy * f_cam[..., 1] / f_cam[..., 2] + cam.cy],
+                     -1)
+    return px + noise * torch.randn(px.shape, generator=gen, dtype=px.dtype, device=px.device)
+
+
+def marker_setup(dtype, device, cov: float = 1e-6, cam_p=(0.0, 0.0, 0.0)):
+    """The marker of tests/test_full_mission.py 6 m ahead of the mission's
+    start pose, facing back: (position, orientation, pose covariance, camera,
+    camera-in-IMU position, orientation)."""
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
+
+    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    return (t([6.0, 0.0, 0.0]), t(MARKER_CAM_Q), cov * torch.eye(6, dtype=dtype, device=device), CameraConfiguration(),
+            t(cam_p), t(MARKER_CAM_Q))
+
+
+def marker_check_operands(nb: int, dtype, device, gen: torch.Generator, k: int, per_instance: bool,
+                          lanes: int | None = None):
+    """K11 operands at bank ``nb``: perturbed mission states (positions moved
+    by 0.5 m, orientations by ~0.15 rad, correlated covariances at half the
+    initial per-field scales), k corners of the marker seen from each
+    instance's own pose with 1 px of noise (bearings near the camera's axis,
+    far from the S² equator), pixel covariance 4·I, a 1e-3·I pose prior,
+    shared pixels and marker pose or per instance. ``lanes`` > nb pads in
+    the JAX package's convention (identity covariances, copies of instance
+    0)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+
+    f64 = torch.float64
+    bs, _, _ = mission_setup(nb, f64, device, gen, spread=0.5)
+    mpos, mrot, cov, cam, cam_p, cam_q = marker_setup(f64, device, 1e-3, (0.1, -0.05, 0.02))
+    if per_instance:
+        mpos = mpos + 0.05 * torch.randn(nb, 3, generator=gen, dtype=f64, device=device)
+        mrot = mf.so3_boxplus(mrot.expand(nb, 4), 0.02 * torch.randn(nb, 3, generator=gen, dtype=f64, device=device))
+    px = marker_pixels(bs.mu.position, bs.mu.orientation, gen, 1.0, mpos, mrot, cam_p, cam_q)[:, :k]
+    ls = pf.to_lanes(bs)
+    if lanes is not None:
+        pad = lanes - nb
+        ls = ls._replace(cov_t=torch.cat([ls.cov_t, torch.eye(53, dtype=f64, device=device)[..., None].expand(
+            53, 53, pad)], -1), mu_t=torch.cat([ls.mu_t, ls.mu_t[:, :1].expand(54, pad)], -1))
+    ls = ls._replace(cov_t=ls.cov_t.to(dtype).contiguous(), mu_t=ls.mu_t.to(dtype).contiguous())
+    corners = torch.tensor(MARKER_CORNERS[:k], dtype=f64, device=device)
+    return pmf.marker_operands(ls, px if per_instance else px[0], 4.0 * torch.eye(2, dtype=f64, device=device),
+                               corners, mpos, mrot, cov, cam, cam_p, cam_q, nb=nb)[1]
+
+
+def phase_checks_pose_markers(device):
+    """K11 against its plain version at bank 300, float32 and float64, with 1
+    and 4 corners, shared and per-instance pixels and marker poses; then 28
+    pad lanes (to 328): the bank's 300 lanes are those of the unpadded bank
+    bit for bit, and the pad lanes stay finite."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+
+    nb = 300
+    for dtype in (torch.float32, torch.float64):
+        for k, per_instance in ((1, False), (1, True), (4, False), (4, True)):
+            args = marker_check_operands(nb, dtype, device, torch.Generator(device=device).manual_seed(43), k,
+                                         per_instance)
+            compare("pose_markers", f"pose_markers[k={k},{'per-instance' if per_instance else 'shared'}]", args)
+        padded = marker_check_operands(nb, dtype, device, torch.Generator(device=device).manual_seed(43), 4, True,
+                                       lanes=nb + 28)
+        plain_bank, pad_bank = pmf.pose_markers_lanes_cuda(*args), pmf.pose_markers_lanes_cuda(*padded)
+        torch.cuda.synchronize()
+        same = torch.equal(_valid(plain_bank[0]), _valid(pad_bank[0][..., :nb])) and all(
+            torch.equal(a, b[..., :nb]) for a, b in zip(plain_bank[1:], pad_bank[1:]))
+        finite = bool(torch.isfinite(_valid(pad_bank[0][..., nb:])).all()) and all(
+            bool(torch.isfinite(b[..., nb:]).all()) for b in pad_bank[1:])
+        log(f"check pose_markers pad lanes {str(dtype).split('.')[-1]}: bank unchanged={same} pads finite={finite}")
+        if not (same and finite):
+            raise AssertionError("pose_markers: pad lanes changed the bank or went non-finite")
+
+
+def phase_marker_mission(device, nb, captured: dict, counts: dict):
+    """The marker-aided mission second: the shared mission second (K2 → K3)
+    plus one 4-corner marker tick at its end through
+    ``pose_marker_fused.update_visual_features_lanes`` (1 Hz, one K11
+    launch), bank ``nb``, float32. The marker of tests/test_full_mission.py
+    6 m ahead of the start pose; each instance's pixels projected from its
+    own state at the marker tick with 0.5 px of noise, covariance 0.25·I.
+    A warm second records K11's operands, then a timed second runs between
+    a zeroing and a reading of the counters."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.parallel.bank import tree_map
+
+    dtype = torch.float32
+    bs, params, meas = mission_setup(nb, dtype, device)
+    mpos, mrot, cov, cam, cam_p, cam_q = marker_setup(dtype, device)
+    gen = torch.Generator(device=device).manual_seed(47)
+    corners = torch.tensor(MARKER_CORNERS, dtype=dtype, device=device)
+    fcov = 0.25 * torch.eye(2, dtype=dtype, device=device).expand(4, 2, 2)
+    ls = pf.to_lanes(bs)
+    like = tree_map(lambda a: a[0].clone(), bs)
+    del bs
+
+    def second(ls):
+        for k in range(100):
+            ls = mission_tick(ls, params, meas, k)
+        # the camera's detections: each instance's corners seen from its own
+        # pose at the marker tick, 0.5 px of noise
+        px = marker_pixels(ls.mu_t[0:3].T, ls.mu_t[3:7].T, gen, 0.5, mpos, mrot, cam_p, cam_q)
+        return pmf.update_visual_features_lanes(ls, px, fcov, corners, mpos, mrot, cov, cam, cam_p, cam_q)
+
+    with capture_operands(captured, counts, keep=lambda key: key.startswith("pose_markers")):
+        ls, _ = second(ls)
+    mission_counts = {key: n for key, n in counts.items() if key.startswith("pose_markers")}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    ls, info = second(ls)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    rate = nb * 100 / seconds
+    nis = info.mahalanobis2.double()
+    log(f"marker-aided mission second: bank={nb} float32 ticks/s={rate:.6e} seconds={seconds:.6f} "
+        f"marker NIS mean={nis.mean().item():.4f} max={nis.max().item():.4f} launches={launches}")
+    if launches != MARKER_SECOND:
+        raise AssertionError(f"marker-aided mission second launched {launches}, expected {MARKER_SECOND}")
+    out = pf.from_lanes(ls, like)
+    for name, t in (("cov", out.cov), ("mu", pf._pack_storage(out.mu)), ("marker NIS", nis)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"marker-aided mission second produced non-finite {name}")
+    if not bool((torch.diagonal(out.cov, dim1=1, dim2=2) > 0).all()):
+        raise AssertionError("marker-aided mission second produced a non-positive variance")
+    return launches, rate, mission_counts
+
+
+def marker_trajectory_runs(device, ticks: int, nb: int = 256):
+    """The marker trajectory from perturbed mission starts (position 0.1 m,
+    velocity 0.05 m/s): bench.py's mission schedule (acceleration every
+    tick, DVL 5 Hz, pressure 2 Hz, ADCP 1 Hz, body efforts 10 Hz) plus a
+    4-corner marker sighting every 100 ticks (0.5 px of noise) from a
+    vehicle that moves at 0.3 m/s along body +x while it turns at 0.01 rad/s,
+    through ``pose_driver.run_trajectory_bank_lanes`` in float32 (the
+    kernels on the card) and float64 (the plain versions). Returns (worst
+    |Δposition| m, worst |Δorientation| rad over every tick, the f32 run's
+    launches, the two runs' marker NIS (T, B, 4), the marker flags (T,))."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_driver as drv
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.parallel.bank import tree_map
+
+    f64 = torch.float64
+    gen = torch.Generator(device=device).manual_seed(13)
+    bs64, params64, meas = mission_setup(nb, f64, device)
+    rn = lambda *s: torch.randn(*s, generator=gen, dtype=f64, device=device)
+    start = bs64.mu.position + 0.1 * rn(nb, 3)
+    bs64 = bs64._replace(mu=bs64.mu._replace(position=start, velocity=0.05 * rn(nb, 3)))
+    k = torch.arange(ticks, device=device)
+    on = lambda period: (k % period == period - 1)[:, None].expand(ticks, nb)
+    # the true path: yaw 0.01 rad/s, 0.3 m/s along body +x
+    yaw = 0.01 * DT * k.to(f64)
+    step = 0.3 * DT * torch.stack([torch.cos(yaw), torch.sin(yaw), torch.zeros_like(yaw)], -1)
+    pos = start[None] + (torch.cumsum(step, 0) - step)[:, None]
+    q = torch.stack([torch.cos(0.5 * yaw), torch.zeros_like(yaw), torch.zeros_like(yaw), torch.sin(0.5 * yaw)], -1)
+    mpos, mrot, cov, cam, cam_p, cam_q = marker_setup(f64, device)
+    px = marker_pixels(pos, q[:, None].expand(ticks, nb, 4), gen, 0.5, mpos, mrot, cam_p, cam_q)
+    stream = lambda key, period: dict(zip(("z", "cov", "valid"), (
+        meas[key][0].expand(ticks, nb, *meas[key][0].shape[1:]),
+        meas[key][1].expand(ticks, nb, *meas[key][1].shape), on(period))))
+    acc, dvl, press, adcp, eff = (stream("acc", 1), stream("dvl", 20), stream("press", 50), stream("adcp", 100),
+                                  stream("eff", 10))
+    inputs = drv.PoseInputs(
+        dt=torch.full((ticks, nb), DT, dtype=f64, device=device),
+        rotation_rate=torch.tensor([0.0, 0.0, 0.01], dtype=f64, device=device).expand(ticks, nb, 3),
+        acc=acc["z"], acc_cov=acc["cov"], acc_valid=acc["valid"],
+        dvl=dvl["z"], dvl_cov=dvl["cov"], dvl_valid=dvl["valid"],
+        pressure=press["z"], pressure_cov=press["cov"], pressure_valid=press["valid"],
+        xy=None, xy_cov=None, xy_valid=None,
+        adcp=adcp["z"], adcp_cov=adcp["cov"], adcp_cell_weighting=torch.full((ticks, nb), 0.5, dtype=f64, device=device),
+        adcp_valid=adcp["valid"],
+        efforts=eff["z"], efforts_cov=eff["cov"], efforts_valid=eff["valid"],
+        marker_features=px, marker_feature_covs=0.25 * torch.eye(2, dtype=f64, device=device).expand(ticks, nb, 4, 2, 2),
+        marker_valid=on(100),
+    )
+    consts = drv.PoseStepConstants(marker=drv.MarkerSetup(
+        torch.tensor(MARKER_CORNERS, dtype=f64, device=device), mpos, mrot, cov, cam, cam_p, cam_q))
+    f32 = lambda tree: tree_map(lambda a: a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a,
+                                tree)
+    cuda_lib.reset_launch_counts()
+    _, out32 = drv.run_trajectory_bank_lanes(f32(bs64), f32(params64), f32(inputs), f32(consts))
+    launches = {name: kern.launches for name, kern in cuda_lib.KERNELS.items()}
+    with plain_route():
+        _, out64 = drv.run_trajectory_bank_lanes(bs64, params64, inputs, consts)
+    for name, out in (("f32 kernels", out32), ("f64 plain", out64)):
+        if not all(bool(torch.isfinite(t).all()) for t in (out.position, out.orientation, out.cov_trace)):
+            raise AssertionError(f"marker trajectory: non-finite {name} state")
+        if not bool((out.cov_trace > 0).all()):
+            raise AssertionError(f"marker trajectory: non-positive covariance trace in {name}")
+    dpos = (out32.position.double() - out64.position).norm(dim=-1).max().item()
+    dang = mf.so3_boxminus(out32.orientation.double(), out64.orientation).norm(dim=-1).max().item()
+    return dpos, dang, launches, (out32.marker_nis, out64.marker_nis), on(100)[:, 0]
+
+
+def phase_marker_trajectory(device, ticks: int):
+    """The marker trajectory guard (:func:`marker_trajectory_runs`, bank 256):
+    the float32 kernels within 3× the float32-vs-float64 drift of the plain
+    path on the CPU; the marker NIS finite on the sighting ticks and 0 on
+    every other tick, in both runs. Returns the float32 run's launches."""
+    t0 = time.perf_counter()
+    dpos, dang, launches, nis, on = marker_trajectory_runs(device, ticks)
+    torch.cuda.synchronize()
+    # 3x the float32 plain path's drift from its float64 one over the same
+    # 1000-tick marker trajectory at bank 256 on the CPU (6.70e-3 m, 5.73e-4
+    # rad, the largest over every tick: marker_trajectory_runs on CPU
+    # tensors). It is ~40x the marker-free trajectory's: the first sighting
+    # moves the float32 and float64 states apart by ~4e-5 m, and the
+    # difference then grows between sightings with the heading difference
+    limits = {"position_m": 2.0e-2, "orientation_rad": 1.7e-3}
+    nis_ok = all(bool(torch.isfinite(n[on]).all()) and bool((n[on] > 0).all()) and bool((n[~on] == 0).all())
+                 for n in nis)
+    log(f"marker trajectory: bank=256 ticks={ticks} max|Δposition|={dpos:.3e} m (limit {limits['position_m']:.1e}) "
+        f"max|Δorientation|={dang:.3e} rad (limit {limits['orientation_rad']:.1e}) marker NIS on the "
+        f"{int(on.sum())} sighting ticks: f32 mean {nis[0][on].double().mean().item():.4f}, f64 mean "
+        f"{nis[1][on].mean().item():.4f}, 0 elsewhere={nis_ok} wall={time.perf_counter() - t0:.1f}s "
+        f"launches={launches}")
+    if dpos > limits["position_m"] or dang > limits["orientation_rad"] or not nis_ok:
+        raise AssertionError("the f32 marker trajectory left the f64 plain trajectory, or its marker NIS is wrong")
+    if launches["pose_markers"] != int(on.sum()):
+        raise AssertionError(f"marker trajectory launched {launches['pose_markers']} K11, expected {int(on.sum())}")
+    return launches
+
+
 def survey_inputs(spec, nb: int, gen: torch.Generator):
     """The fleet survey's schedule for a bank of ``nb`` trajectories, (T, nb,
     …): every stream with its own noise per trajectory and tick, drawn on the
@@ -1820,6 +2112,9 @@ def main() -> int:
     phase_checks_steps(device)
     phase_checks_bottom_solve(device)
     phase_checks_indirect(device)
+    t0 = time.perf_counter()
+    phase_checks_pose_markers(device)
+    log(f"phase pose_markers checks: {time.perf_counter() - t0:.1f} s")
     captured, counts, stats = {}, {}, {}
     ls, like, params, meas, shared, rate, mission_counts = phase_mission(device, args.bank, captured, counts)
     generic = phase_generic(ls, like, params, meas, captured, counts)
@@ -1860,6 +2155,16 @@ def main() -> int:
     times.update(phase_mission_shapes("IndirectPoseUKF bank's 30 steps", captured, counts, mission_counts,
                                       1e3 * INDIRECT_BANK * 30 / rate_indirect, stats))
     del captured
+    torch.cuda.empty_cache()
+    captured, counts = {}, {}
+    t0 = time.perf_counter()
+    marker, rate_marker, mission_counts = phase_marker_mission(device, args.bank, captured, counts)
+    times.update(phase_mission_shapes("marker-aided mission second", captured, counts, mission_counts,
+                                      1e3 * args.bank * 100 / rate_marker, stats))
+    log(f"marker-aided mission second: {rate_marker:.6e} ticks/s against the shared second's {rate:.6e} "
+        f"({100 * (rate_marker / rate - 1):+.2f}%); phase {time.perf_counter() - t0:.1f} s")
+    del captured
+    torch.cuda.empty_cache()
     captured, counts = {}, {}
     smoother_launches, smoother = phase_smoother(device, SMOOTHER_BANK, args.smoother_seconds, captured, counts)
     # K1 and K8 on the backward pass's operands; the table keeps K1's time on
@@ -1873,13 +2178,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet = phase_fleet_ate(device, args.fleet_bank, args.fleet_minutes)
     phase_trajectory(device, args.ticks)
+    t0 = time.perf_counter()
+    marker_trajectory = phase_marker_trajectory(device, args.ticks)
+    log(f"phase marker trajectory: {time.perf_counter() - t0:.1f} s")
 
     # launches of each main path: the counters zeroed just before it, read just after
     paths = {
         "shared_mission_second": shared, "banked_mission_second": banked, "stepped_mission_second": stepped,
         "online_latency": latency_launches, "online_estimator": estimator_launches,
         "velocity_bank": velocity, "bottom_bank": bottom, "survey_smoother": smoother_launches,
-        "indirect_bank": indirect,
+        "indirect_bank": indirect, "marker_mission_second": marker, "marker_trajectory": marker_trajectory,
     }
     missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
     if missing:
@@ -1907,6 +2215,7 @@ def main() -> int:
         "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,
+        "marker_mission_ticks_per_s": rate_marker,
         "survey_smoother": smoother,
         "dtype": "float32", "device_idle_share": idle, "fleet_ate": fleet, "card": smi,
         "wall_s": time.perf_counter() - t_start}

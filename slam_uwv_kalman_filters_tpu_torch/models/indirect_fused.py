@@ -379,17 +379,18 @@ def predict_lanes(lstate: IndirectLanesState, params: "IndirectPoseUKFParams", d
     return lstate._replace(cov_t=cov_t, mu_t=mu_t)
 
 
-def marker_operands(lstate: IndirectLanesState, marker_features, feature_covs, feature_positions, marker_position,
-                    marker_orientation, cov_marker_pose, camera: "CameraConfiguration", camera_in_body_position,
-                    camera_in_body_orientation, nb: int | None = None):
-    """The operands of K10 for :func:`update_markers_lanes`'s arguments:
-    (nb, (cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal)). Pixels become S²
+def corner_operands(cov_t, marker_features, feature_covs, feature_positions, marker_position, marker_orientation,
+                    cov_marker_pose, camera: "CameraConfiguration", camera_position, camera_orientation,
+                    nb: int | None = None, what: str = "update_markers"):
+    """The marker operands that K10 and K11 share, for a bank in ``cov_t``'s
+    lanes, dtype and device: (nb, (mk_t, z_t, r_t, scal)). Pixels become S²
     bearings and tangent covariances here (``pixel_to_s2`` /
-    ``pixel_cov_to_s2``); pad lanes get the JAX package's pad corners."""
+    ``pixel_cov_to_s2``); pad lanes get the JAX package's pad corners; K = 0
+    or mismatched counts raise ``ValueError`` naming ``what``."""
     from .indirect_pose_ukf import _check_corners, pixel_cov_to_s2, pixel_to_s2
 
-    dtype, dev = lstate.cov_t.dtype, lstate.cov_t.device
-    nb_pad = lstate.cov_t.shape[-1]
+    dtype, dev = cov_t.dtype, cov_t.device
+    nb_pad = cov_t.shape[-1]
     tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     feats = tensor(marker_features)
     per_instance = feats.ndim == 3
@@ -398,7 +399,7 @@ def marker_operands(lstate: IndirectLanesState, marker_features, feature_covs, f
     k = feats.shape[1]
     fpos = tensor(feature_positions).reshape(-1, 3)
     fcovs = tensor(feature_covs)
-    _check_corners(k, fpos.shape[0], fcovs.shape[-3] if fcovs.ndim > 2 else k)  # one (2, 2) serves every corner
+    _check_corners(k, fpos.shape[0], fcovs.shape[-3] if fcovs.ndim > 2 else k, what)  # one (2, 2) serves every corner
     if nb is None:
         # per-instance features carry the true bank; shared ones leave it
         # at every lane, which is right only for an unpadded bank
@@ -418,10 +419,21 @@ def marker_operands(lstate: IndirectLanesState, marker_features, feature_covs, f
         r = torch.cat([r, torch.eye(2, dtype=dtype, device=dev).expand(pad, k, 2, 2)])
         mk = torch.cat([mk, mkfill])
     cm = tensor(cov_marker_pose)
-    scal = torch.cat([tensor(camera_in_body_position).reshape(3), tensor(camera_in_body_orientation).reshape(4),
+    scal = torch.cat([tensor(camera_position).reshape(3), tensor(camera_orientation).reshape(4),
                       (0.5 * (cm + cm.T)).reshape(36), fpos.reshape(3 * k)]).contiguous()
-    return nb, (lstate.cov_t, lstate.mu_t, lstate.ref_t, mk.T.contiguous(), z.permute(1, 2, 0).contiguous(),
-                r.permute(1, 2, 3, 0).contiguous(), scal)
+    return nb, (mk.T.contiguous(), z.permute(1, 2, 0).contiguous(), r.permute(1, 2, 3, 0).contiguous(), scal)
+
+
+def marker_operands(lstate: IndirectLanesState, marker_features, feature_covs, feature_positions, marker_position,
+                    marker_orientation, cov_marker_pose, camera: "CameraConfiguration", camera_in_body_position,
+                    camera_in_body_orientation, nb: int | None = None):
+    """The operands of K10 for :func:`update_markers_lanes`'s arguments:
+    (nb, (cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal)); see
+    :func:`corner_operands`."""
+    nb, ops = corner_operands(lstate.cov_t, marker_features, feature_covs, feature_positions, marker_position,
+                              marker_orientation, cov_marker_pose, camera, camera_in_body_position,
+                              camera_in_body_orientation, nb)
+    return nb, (lstate.cov_t, lstate.mu_t, lstate.ref_t, *ops)
 
 
 def update_markers_lanes(lstate: IndirectLanesState, marker_features, feature_covs, feature_positions,

@@ -176,9 +176,10 @@ def _visual_landmark_measurement(chi: PoseErrorStateWithMarker, feature_pos, cam
     return mf.s2_normalize(feature_in_cam)
 
 
-def _check_corners(k: int, n_positions: int, n_covs: int) -> None:
+def _check_corners(k: int, n_positions: int, n_covs: int, what: str = "update_markers") -> None:
+    """The JAX package's guards: no corner, or counts that disagree."""
     if k == 0:
-        raise ValueError("update_markers needs at least one feature")
+        raise ValueError(f"{what} needs at least one feature")
     if n_positions != k or n_covs != k:
         raise ValueError(f"{k} marker_features but {n_positions} feature_positions / {n_covs} feature_covs")
 

@@ -17,10 +17,13 @@ here. Three forms, as in JAX:
   ``from_lanes`` out), every scheduled model on the fused lanes route.
 
 Parameter sets may be shared or banked (Monte-Carlo sweeps). A sensor group
-that is ``None`` in the inputs is never run. Visual-marker detections need
-the fused 59-DOF marker kernel (JAX ``pose_marker_fused``), which the port
-does not have yet: a schedule that carries them raises
-``NotImplementedError``.
+that is ``None`` in the inputs is never run. Visual-marker detections run the
+59-DOF augmented update last in each tick (``pose_ukf.update_visual_features``
+solo and bank, K11 through ``pose_marker_fused.update_visual_features_lanes``
+on lanes state) and need ``PoseStepConstants(marker=MarkerSetup(...))``.
+The ``run_*`` replays read the schedule's marker flags once and leave the
+marker stream out of a tick on which no filter has a detection: there the
+masked update would keep every filter's prior, so the result is the same.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..ops import ukf
 from ..parallel.bank import select_where
 from ..utils.device import resolve_device
 from . import pose_fused as pf
+from . import pose_marker_fused as pmf
 from . import pose_ukf as pukf
 from . import pose_update_fused as puf
 
@@ -54,9 +58,8 @@ __all__ = [
 
 
 class MarkerSetup(NamedTuple):
-    """Mission constants of the visual-marker stream (marker geometry, pose
-    prior, camera calibration), as in JAX. Carried for the schedule's shape;
-    the marker update itself is not ported."""
+    """Mission constants of the visual-marker stream: the marker geometry,
+    the marker pose's prior and the camera calibration, as in JAX."""
 
     feature_positions: torch.Tensor  # (K, 3)
     marker_position: torch.Tensor  # (3,)
@@ -234,13 +237,14 @@ def make_inputs(
     )
 
 
-def _no_markers(inp: PoseInputs) -> None:
-    if inp.marker_features is not None:
-        raise NotImplementedError(
-            "this schedule carries visual-marker detections: the marker update needs the fused "
-            "59-DOF marker kernel (JAX pose_marker_fused._pose_marker_lanes), which is not "
-            "ported yet (ROADMAP queue B, item 9)"
-        )
+def _marker_args(inp: PoseInputs, consts: Optional[PoseStepConstants]) -> tuple:
+    """The marker update's arguments after the state and parameters."""
+    if consts is None or consts.marker is None:
+        raise ValueError("schedule carries marker detections; pass PoseStepConstants(marker=MarkerSetup(...))")
+    ms = consts.marker
+    return (inp.marker_features, inp.marker_feature_covs, ms.feature_positions, ms.marker_position,
+            ms.marker_orientation, ms.cov_marker_pose, ms.camera, ms.camera_in_imu_position,
+            ms.camera_in_imu_orientation)
 
 
 def _masked_update(state, valid, update_fn, *args):
@@ -250,7 +254,7 @@ def _masked_update(state, valid, update_fn, *args):
     return select_where(valid, new_state, state), info
 
 
-def _outputs(position, orientation, velocity, cov_trace, inp, dvl_info, adcp_info, gps_accepted):
+def _outputs(position, orientation, velocity, cov_trace, inp, dvl_info, adcp_info, gps_accepted, marker_nis=None):
     zero = torch.zeros_like(inp.dt)
     return TickOutput(
         position=position,
@@ -264,14 +268,13 @@ def _outputs(position, orientation, velocity, cov_trace, inp, dvl_info, adcp_inf
             inp.adcp_valid & adcp_info.accepted if adcp_info is not None else zero.to(torch.bool)
         ),
         gps_accepted=gps_accepted,
-        marker_nis=None,
+        marker_nis=marker_nis,
     )
 
 
 def pose_step(state, params, inp: PoseInputs, consts: Optional[PoseStepConstants] = None):
     """One tick of one filter: cache the gyro input → predict → masked
     sensor updates, in the reference's integration order."""
-    _no_markers(inp)
     state = pukf.integrate_rotation_rate(state, inp.rotation_rate)
     state = pukf.predict(state, params, inp.dt)
     if inp.acc is not None:
@@ -306,8 +309,13 @@ def pose_step(state, params, inp: PoseInputs, consts: Optional[PoseStepConstants
     if inp.delayed_xy is not None:
         state, _ = _masked_update(state, inp.delayed_valid, pukf.update_delayed_position,
                                   state, params, inp.delayed_xy, inp.delayed_xy_cov, inp.delayed_position)
+    marker_nis = None
+    if inp.marker_features is not None:
+        state, m_info = _masked_update(state, inp.marker_valid, pukf.update_visual_features,
+                                       state, params, *_marker_args(inp, consts))
+        marker_nis = torch.where(inp.marker_valid, m_info.mahalanobis2, 0.0)
     return state, _outputs(state.mu.position, state.mu.orientation, state.mu.velocity,
-                           torch.trace(state.cov), inp, dvl_info, adcp_info, gps_accepted)
+                           torch.trace(state.cov), inp, dvl_info, adcp_info, gps_accepted, marker_nis)
 
 
 def _tick(inputs: PoseInputs, k: int) -> PoseInputs:
@@ -318,15 +326,31 @@ def _stack(outs: list) -> TickOutput:
     return TickOutput(*(None if col[0] is None else torch.stack(col) for col in zip(*outs)))
 
 
+def _replay(step, state, inputs: PoseInputs):
+    """Run ``step(state, tick inputs)`` over the (T,)-tick schedule and stack
+    the outputs. A tick on which no filter has a marker detection runs
+    without the marker stream (its masked update would keep every prior)
+    and records a marker NIS of 0: one host read of the marker flags per
+    replay."""
+    n = inputs.dt.shape[0]
+    marker_on = None if inputs.marker_valid is None else inputs.marker_valid.reshape(n, -1).any(1).tolist()
+    outs = []
+    for k in range(n):
+        inp = _tick(inputs, k)
+        if marker_on is None or marker_on[k]:
+            state, out = step(state, inp)
+        else:
+            state, out = step(state, inp._replace(marker_features=None, marker_feature_covs=None, marker_valid=None))
+            out = out._replace(marker_nis=torch.zeros(inp.marker_features.shape[:-1], dtype=inp.dt.dtype,
+                                                      device=inp.dt.device))
+        outs.append(out)
+    return state, _stack(outs)
+
+
 def run_trajectory(state, params, inputs: PoseInputs, consts: Optional[PoseStepConstants] = None):
     """Replay a (T,)-tick schedule on one filter; outputs carry a leading
     (T,) axis."""
-    _no_markers(inputs)
-    outs = []
-    for k in range(inputs.dt.shape[0]):
-        state, out = pose_step(state, params, _tick(inputs, k), consts)
-        outs.append(out)
-    return state, _stack(outs)
+    return _replay(lambda s, inp: pose_step(s, params, inp, consts), state, inputs)
 
 
 def pose_step_bank(bstate, params, inp: PoseInputs, consts: Optional[PoseStepConstants] = None):
@@ -334,7 +358,6 @@ def pose_step_bank(bstate, params, inp: PoseInputs, consts: Optional[PoseStepCon
     leading bank axis on every leaf and the prediction interval is shared
     (``inp.dt[0]``). Each phase is a ``pose_ukf.*_bank`` call: generic on a
     CPU bank, the fused kernels on a CUDA bank."""
-    _no_markers(inp)
     bstate = bstate._replace(rotation_rate=inp.rotation_rate)
     bstate = pukf.predict_bank(bstate, params, inp.dt[0])
     if inp.acc is not None:
@@ -374,19 +397,19 @@ def pose_step_bank(bstate, params, inp: PoseInputs, consts: Optional[PoseStepCon
     if inp.delayed_xy is not None:
         bstate, _ = _masked_update(bstate, inp.delayed_valid, pukf.update_delayed_position_bank,
                                    bstate, params, inp.delayed_xy, inp.delayed_xy_cov, inp.delayed_position)
+    marker_nis = None
+    if inp.marker_features is not None:
+        bstate, m_info = _masked_update(bstate, inp.marker_valid, pukf.update_visual_features_bank,
+                                        bstate, params, *_marker_args(inp, consts))
+        marker_nis = torch.where(inp.marker_valid[:, None], m_info.mahalanobis2, 0.0)
     cov_trace = torch.diagonal(bstate.cov, dim1=-2, dim2=-1).sum(-1)
     return bstate, _outputs(bstate.mu.position, bstate.mu.orientation, bstate.mu.velocity,
-                            cov_trace, inp, dvl_info, adcp_info, gps_accepted)
+                            cov_trace, inp, dvl_info, adcp_info, gps_accepted, marker_nis)
 
 
 def run_trajectory_bank(bstate, params, inputs: PoseInputs, consts: Optional[PoseStepConstants] = None):
     """Fleet replay of :func:`pose_step_bank` over (T, B, …) inputs."""
-    _no_markers(inputs)
-    outs = []
-    for k in range(inputs.dt.shape[0]):
-        bstate, out = pose_step_bank(bstate, params, _tick(inputs, k), consts)
-        outs.append(out)
-    return bstate, _stack(outs)
+    return _replay(lambda s, inp: pose_step_bank(s, params, inp, consts), bstate, inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -434,8 +457,8 @@ def pose_step_bank_lanes(lstate, params, inp: PoseInputs, consts: Optional[PoseS
     full mode (pass :func:`pose_fused.banked_predict_operands` once per
     mission as ``banked_ops``), its ``atmospheric_pressure`` rides K3's
     per-instance aux lanes, and a banked vehicle model sends the efforts
-    update through the generic-h route (K1, ``h``, K4)."""
-    _no_markers(inp)
+    update through the generic-h route (K1, ``h``, K4). Marker detections
+    run K11 (``pose_marker_fused.update_visual_features_lanes``)."""
     dtype = lstate.cov_t.dtype
     ls = pf.set_rotation_rate_lanes(lstate, inp.rotation_rate)
     ls = pf.predict_lanes(ls, params, inp.dt[0], banked_ops=banked_ops)
@@ -482,10 +505,16 @@ def pose_step_bank_lanes(lstate, params, inp: PoseInputs, consts: Optional[PoseS
     if inp.delayed_xy is not None:
         new, _ = delayed_xy_update_lanes(ls, inp.delayed_xy, inp.delayed_xy_cov, inp.delayed_position)
         ls = _lanes_select(inp.delayed_valid, new, ls)
+    marker_nis = None
+    if inp.marker_features is not None:
+        new, m_info = pmf.update_visual_features_lanes(ls, *_marker_args(inp, consts))
+        ls = _lanes_select(inp.marker_valid, new, ls)
+        marker_nis = torch.where(inp.marker_valid[:, None], m_info.mahalanobis2, 0.0)
     # the diagonal belongs to the valid half
     cov_trace = torch.diagonal(ls.cov_t, dim1=0, dim2=1).sum(-1)
     mu = ls.mu_t
-    return ls, _outputs(mu[0:3].T, mu[3:7].T, mu[7:10].T, cov_trace, inp, dvl_info, adcp_info, gps_accepted)
+    return ls, _outputs(mu[0:3].T, mu[3:7].T, mu[7:10].T, cov_trace, inp, dvl_info, adcp_info, gps_accepted,
+                        marker_nis)
 
 
 def run_trajectory_bank_lanes(bstate, params, inputs: PoseInputs, consts: Optional[PoseStepConstants] = None):
@@ -495,7 +524,6 @@ def run_trajectory_bank_lanes(bstate, params, inputs: PoseInputs, consts: Option
     builds the full-mode predict operands once, which bakes tick 0's
     interval into them: the schedule's dt must then be constant (as
     :func:`make_inputs` makes it), and a varying one raises."""
-    _no_markers(inputs)
     ls = pf.to_lanes(bstate)
     banked_ops = None
     if params.process_noise.ndim == 3:
@@ -508,8 +536,6 @@ def run_trajectory_bank_lanes(bstate, params, inputs: PoseInputs, consts: Option
                 "run_trajectory_bank for variable-dt banked replays"
             )
         banked_ops = pf.banked_predict_operands(params, float(dt[0]), bstate.cov.dtype)
-    outs = []
-    for k in range(inputs.dt.shape[0]):
-        ls, out = pose_step_bank_lanes(ls, params, _tick(inputs, k), consts, banked_ops=banked_ops)
-        outs.append(out)
-    return pf.from_lanes(ls, bstate), _stack(outs)
+    ls, outs = _replay(lambda s, inp: pose_step_bank_lanes(s, params, inp, consts, banked_ops=banked_ops), ls,
+                       inputs)
+    return pf.from_lanes(ls, bstate), outs

@@ -7,8 +7,8 @@ damping sub-model, water currents, ADCP bias and water density.
 This port holds the constructors, the process model and process-noise
 assembly, prediction, and the measurement updates of the mission driver
 (velocity, acceleration, z and xy position, geographic position, delayed
-position, pressure, water velocity, body efforts in full mode), each in solo
-and ``_bank`` form.
+position, pressure, water velocity, body efforts in full mode, visual
+markers through the 59-DOF augmentation), each in solo and ``_bank`` form.
 
 * Solo functions take one filter (leaves without a bank axis) and run the
   generic path (``ops/ukf.py``) on a bank of one.
@@ -32,12 +32,15 @@ from ..ops import geodesy as geo
 from ..ops import manifolds as mf
 from ..ops import ukf
 from ..parallel.bank import tree_map
-from ..utils.config import PoseUKFConfig
+from ..utils.config import CameraConfiguration, PoseUKFConfig
 from ..utils.device import resolve_device
+from .indirect_pose_ukf import _as, _check_corners, pixel_cov_to_s2, pixel_to_s2
 
 __all__ = [
     "PoseState",
     "POSE_MANIFOLD",
+    "PoseStateWithMarker",
+    "POSE_MARKER_MANIFOLD",
     "PoseUKFParams",
     "PoseUKFState",
     "initial_state_from_config",
@@ -71,6 +74,8 @@ __all__ = [
     "update_body_efforts_bank",
     "update_geographic_position_bank",
     "update_delayed_position_bank",
+    "update_visual_features",
+    "update_visual_features_bank",
 ]
 
 
@@ -111,6 +116,39 @@ POSE_MANIFOLD = mf.make_manifold(
 )  # DOF = 53 → 107 sigma points
 if POSE_MANIFOLD.dof != 53:
     raise AssertionError("PoseState must have 53 tangent DOF")
+
+
+class PoseStateWithMarker(NamedTuple):
+    """``MTK_BUILD_MANIFOLD(PoseStateWithMarker, ...)`` (``src/PoseUKF.cpp:225-228``),
+    flattened: the 53 DOF of :class:`PoseState`, then the marker pose (59 DOF,
+    119 sigma points). Storage rows 54:57 hold the marker position and 57:61
+    its quaternion; tangent rows 53:56 and 56:59."""
+
+    position: torch.Tensor
+    orientation: torch.Tensor
+    velocity: torch.Tensor
+    acceleration: torch.Tensor
+    bias_gyro: torch.Tensor
+    bias_acc: torch.Tensor
+    gravity: torch.Tensor
+    inertia: torch.Tensor
+    lin_damping: torch.Tensor
+    quad_damping: torch.Tensor
+    water_velocity: torch.Tensor
+    water_velocity_below: torch.Tensor
+    bias_adcp: torch.Tensor
+    water_density: torch.Tensor
+    marker_position: torch.Tensor  # (3,)
+    marker_orientation: torch.Tensor  # (4,)
+
+
+POSE_MARKER_MANIFOLD = mf.make_manifold(
+    *POSE_MANIFOLD.fields,
+    mf.Field("marker_position", "vec", 3),
+    mf.Field("marker_orientation", "so3"),
+)
+if POSE_MARKER_MANIFOLD.dof != 59:
+    raise AssertionError("PoseStateWithMarker must have 59 tangent DOF")
 
 
 class PoseUKFParams(NamedTuple):
@@ -804,3 +842,92 @@ def update_delayed_position(state, params, z, meas_cov, delayed_position):
         state.mu.position[:2] - torch.as_tensor(delayed_position, dtype=dtype, device=device)
     )
     return update_xy_position(state, params, shifted, meas_cov)
+
+
+# ---------------------------------------------------------------------------
+# visual markers: the 59-DOF augmentation (PoseUKF.cpp:613-654)
+# ---------------------------------------------------------------------------
+
+
+def _visual_landmark_measurement(chi: PoseStateWithMarker, feature_pos, cam_q, cam_p) -> torch.Tensor:
+    """``measurementVisualLandmark`` (``PoseUKF.cpp:233-243``): feature →
+    nav → camera frame → S² bearing."""
+    cam_in_nav_q, cam_in_nav_p = mf.affine_mul(chi.orientation, chi.position, cam_q, cam_p)
+    nav_in_cam_q, nav_in_cam_p = mf.affine_inv(cam_in_nav_q, cam_in_nav_p)
+    feature_nav = mf.affine_apply(chi.marker_orientation, chi.marker_position, feature_pos)
+    return mf.s2_normalize(mf.affine_apply(nav_in_cam_q, nav_in_cam_p, feature_nav))
+
+
+def _update_visual_features_generic(bstate: PoseUKFState, feats, fcovs, fpos, mpos, mrot, cov_marker, camera,
+                                    cam_p, cam_q):
+    """The marker update of a bank on the generic path: feats (B, K, 2)
+    pixels, fcovs (B, K, 2, 2), fpos (K, 3) in the marker frame, the marker
+    pose (B, 3) / (B, 4), cov_marker (6, 6), the camera extrinsics (3,) /
+    (4,). The filter ⊕ the marker pose with zero cross-covariance, one S²
+    update per corner on the 59-DOF manifold, the filter block marginalized
+    back out; the infos on a (B, K) axis."""
+    nb, k = feats.shape[:2]
+    _check_corners(k, fpos.shape[0], fcovs.shape[1], "update_visual_features")
+    dtype, dev = bstate.cov.dtype, bstate.cov.device
+    aug_mu = PoseStateWithMarker(*bstate.mu, marker_position=mpos, marker_orientation=mrot)
+    n = POSE_MARKER_MANIFOLD.dof
+    aug_cov = torch.zeros(nb, n, n, dtype=dtype, device=dev)
+    aug_cov[:, :53, :53] = bstate.cov
+    aug_cov[:, 53:, 53:] = cov_marker
+    z_all, r_all = pixel_to_s2(feats, camera), pixel_cov_to_s2(fcovs, camera)
+    infos = []
+    for i in range(k):
+        h = lambda chi, fp=fpos[i]: _visual_landmark_measurement(chi, fp, cam_q, cam_p)
+        aug_mu, aug_cov, info = ukf.update(POSE_MARKER_MANIFOLD, aug_mu, aug_cov, z_all[:, i], h, r_all[:, i],
+                                           meas_manifold=mf.S2_MANIFOLD)
+        infos.append(info)
+    info = ukf.UpdateInfo(*(torch.stack(leaves, dim=1) for leaves in zip(*infos)))
+    return bstate._replace(mu=PoseState(*aug_mu[:14]), cov=aug_cov[:, :53, :53].contiguous()), info
+
+
+def update_visual_features(state: PoseUKFState, params: PoseUKFParams, marker_features, feature_covs,
+                           feature_positions, marker_position, marker_orientation, cov_marker_pose,
+                           camera: CameraConfiguration, camera_in_imu_position, camera_in_imu_orientation):
+    """Visual-marker update of one filter via the 59-DOF augmentation
+    (``PoseUKF.cpp:613-654``): marker_features (K, 2) pixels, feature_covs
+    (K, 2, 2), feature_positions (K, 3) in the marker frame; each pixel
+    becomes a pinhole bearing and its covariance is divided by
+    [[fx², fx·fy], [fx·fy, fy²]]. Returns the state and the per-corner
+    ``UpdateInfo`` stacked on a leading (K,) axis; K = 0 or mismatched
+    counts raise ``ValueError``. The model reads no parameter."""
+    c = state.cov
+    feats, fcovs, fpos = _as(marker_features, c), _as(feature_covs, c), _as(feature_positions, c)
+    _check_corners(feats.shape[0], fpos.shape[0], fcovs.shape[0], "update_visual_features")
+    return _solo(_update_visual_features_generic, state, feats[None], fcovs[None], fpos,
+                 _as(marker_position, c)[None], _as(marker_orientation, c)[None], _as(cov_marker_pose, c), camera,
+                 _as(camera_in_imu_position, c), _as(camera_in_imu_orientation, c))
+
+
+def update_visual_features_bank(bstate: PoseUKFState, params: PoseUKFParams, marker_features, feature_covs,
+                                feature_positions, marker_position, marker_orientation, cov_marker_pose,
+                                camera: CameraConfiguration, camera_in_imu_position, camera_in_imu_orientation):
+    """Bank visual-marker update. ``marker_features`` / ``feature_covs`` are
+    shared (K, …) or per instance (B, K, …), the marker pose's mean shared
+    (3,) / (4,) or per instance (B, 3) / (B, 4); the marker geometry, the
+    marker pose's covariance and the camera are shared. The model reads no
+    parameter, so a banked ``params`` works unchanged. A CUDA bank runs the
+    augmentation, the K chained corner updates and the marginalization in
+    one K11 launch (``models/pose_marker_fused.py``), a CPU bank the generic
+    path. Returns the state and the infos on a (B, K) axis."""
+    if _fused_route(bstate):
+        from . import pose_marker_fused
+
+        return pose_marker_fused.update_visual_features_fused_banked(
+            bstate, marker_features, feature_covs, feature_positions, marker_position, marker_orientation,
+            cov_marker_pose, camera, camera_in_imu_position, camera_in_imu_orientation)
+    nb, c = bstate.cov.shape[0], bstate.cov
+    feats, fcovs, fpos = _as(marker_features, c), _as(feature_covs, c), _as(feature_positions, c)
+    if feats.ndim == 2:
+        feats = feats[None].expand(nb, *feats.shape)
+    k = feats.shape[1]
+    _check_corners(k, fpos.shape[0], fcovs.shape[-3] if fcovs.ndim > 2 else k,  # one (2, 2) serves every corner
+                   "update_visual_features")
+    return _update_visual_features_generic(
+        bstate, feats, fcovs.expand(nb, k, 2, 2), fpos, _as(marker_position, c).expand(nb, 3),
+        _as(marker_orientation, c).expand(nb, 4), _as(cov_marker_pose, c), camera, _as(camera_in_imu_position, c),
+        _as(camera_in_imu_orientation, c))

@@ -124,6 +124,11 @@ KERNELS = {
         # cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal, k, cov_out, mu_out, m2, nu_t, nb, stream
         (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _P),
     ),
+    "pose_markers": Kernel(
+        "pose_markers", "slam_pose_markers", "csrc/pose_markers.cu",
+        # cov_t, mu_t, mk_t, z_t, r_t, scal, k, cov_out, mu_out, m2, nu_t, a, c, bear, w, nb, stream
+        (_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+    ),
 }
 
 

@@ -23,7 +23,9 @@ those trees also had (later modules inside the tests), so the same functions
 can hash their builds. K7 (the BottomUKF step) and K8 (the banked SPD solve)
 are held to their plain versions, K8's error measured on D·X, D = √diag A;
 so are K9 and K10 (the IndirectPoseUKF's predict and marker update) at bank
-300, with one and four corners, shared and per-instance marker data.
+300, with one and four corners, shared and per-instance marker data, and K11
+(the PoseUKF's 59-DOF marker update) the same way, with pad lanes and the
+routing of a CUDA bank's ``update_visual_features_bank`` through it.
 """
 
 import hashlib
@@ -848,3 +850,118 @@ def test_indirect_wrappers_launch_and_count(device):
     ipu.predict_bank(bs, params._replace(orientation_error_tau=torch.full((NB,), 30.0, device=device)), 0.1)
     torch.cuda.synchronize()
     assert k9.launches == before9 + 1
+
+
+# ---------------------------------------------------------------------------
+# K11 (the PoseUKF visual-marker update with the 59-DOF augmentation)
+# ---------------------------------------------------------------------------
+
+MARKER_CORNERS = ((0.15, 0.15, 0.0), (-0.15, 0.15, 0.0), (-0.15, -0.15, 0.0), (0.15, -0.15, 0.0))
+MARKER_CAM_Q = (0.5, -0.5, 0.5, -0.5)  # the optical axis along body +x
+
+
+def marker_bank(device, dtype, nb=300, k=4, per_instance=False, seed=23):
+    """A bank of PoseUKF mission states (positions moved by 0.3 m,
+    orientations by ~0.05 rad, random correlated covariances at half the
+    initial per-field scales) and k corners of a marker 6 m ahead, projected
+    from each instance's own pose with 1 px of noise (bearings near the
+    camera's axis, far from the S² equator). Returns (bank state, the
+    marker arguments of ``update_visual_features_bank`` after the state and
+    parameters)."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
+
+    f64 = torch.float64
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, dtype=f64, device=device)
+    t = lambda v: torch.tensor(v, dtype=f64, device=device)
+    state, _ = pukf.init_from_pose(t([0.0] * 3), torch.eye(3, dtype=f64) * 0.01, t([1.0, 0.0, 0.0, 0.0]),
+                                   torch.eye(3, dtype=f64) * 1e-4, default_pose_ukf_config(),
+                                   dyn.default_uwv_parameters(device=device), device=device)
+    bs = bank.replicate(state, nb)
+    g = rn(nb, 53, 53)
+    c = g @ g.transpose(1, 2) / 53 + torch.eye(53, dtype=f64, device=device)
+    s = torch.sqrt(torch.diagonal(c, dim1=1, dim2=2))
+    sd = 0.5 * torch.sqrt(torch.diagonal(state.cov))
+    bs = bs._replace(
+        mu=bs.mu._replace(position=0.3 * rn(nb, 3), orientation=mf.so3_boxplus(bs.mu.orientation, 0.05 * rn(nb, 3)),
+                          velocity=0.2 * rn(nb, 3)),
+        cov=c / (s[:, :, None] * s[:, None, :]) * sd[None, :, None] * sd[None, None, :])
+    corners = t(MARKER_CORNERS[:k])
+    mpos, mrot = t([6.0, 0.0, 0.0]), t(MARKER_CAM_Q)
+    if per_instance:
+        mpos, mrot = mpos + 0.05 * rn(nb, 3), mf.so3_boxplus(mrot.expand(nb, 4), 0.02 * rn(nb, 3))
+    cam, cam_p, cam_q = CameraConfiguration(), t([0.1, -0.05, 0.02]), t(MARKER_CAM_Q)
+    qi, pi = mf.affine_inv(*mf.affine_mul(bs.mu.orientation, bs.mu.position, cam_q, cam_p))
+    f_cam = mf.affine_apply(qi[:, None], pi[:, None], mf.affine_apply(mrot[..., None, :], mpos[..., None, :], corners))
+    px = torch.stack([cam.fx * f_cam[..., 0] / f_cam[..., 2] + cam.cx, cam.fy * f_cam[..., 1] / f_cam[..., 2] + cam.cy],
+                     -1) + rn(nb, k, 2)
+    args = (px if per_instance else px[0], torch.eye(2, dtype=f64, device=device) * 4.0, corners, mpos, mrot,
+            torch.eye(6, dtype=f64, device=device) * 1e-3, cam, cam_p, cam_q)
+    return bank.tree_map(lambda x: x.to(dtype), bs), args
+
+
+def marker_operands(device, dtype, nb=300, k=4, per_instance=False, lanes=None):
+    """K11's operands for :func:`marker_bank`; ``lanes`` > nb pads the bank
+    in the JAX package's convention (identity covariances, copies of
+    instance 0)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+
+    bs, args = marker_bank(device, dtype, nb, k, per_instance)
+    ls = pf.to_lanes(bs)
+    if lanes is not None:
+        pad = lanes - nb
+        eye = torch.eye(53, dtype=dtype, device=device)[..., None].expand(53, 53, pad)
+        ls = ls._replace(cov_t=torch.cat([ls.cov_t, eye], -1).contiguous(),
+                         mu_t=torch.cat([ls.mu_t, ls.mu_t[:, :1].expand(54, pad)], -1).contiguous())
+    return pmf.marker_operands(ls, *args, nb=nb)[1]
+
+
+@pytest.mark.parametrize("k,per_instance", [(1, False), (1, True), (4, False), (4, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pose_markers_kernel_matches_plain(device, dtype, k, per_instance):
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+
+    args = marker_operands(device, dtype, k=k, per_instance=per_instance)
+    ko, po = pmf.pose_markers_lanes_cuda(*args), pmf.pose_markers_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(pf._mirror_half(ko[0])).all()) and all(bool(torch.isfinite(x).all()) for x in ko[1:])
+    assert _cov_err(ko[0], po[0], args[0]) <= LIMIT[dtype]  # normalized by the prior
+    assert max(_rel(ko[i], po[i]) for i in (1, 2, 3)) <= LIMIT[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pose_markers_pad_lanes_leave_the_bank_alone(device, dtype):
+    """28 pad lanes (identity covariance, pad corners: bearing (0, 0, 1),
+    R = I, an identity marker pose) leave the bank's outputs bit-identical
+    and stay finite."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+
+    plain_bank = pmf.pose_markers_lanes_cuda(*marker_operands(device, dtype, per_instance=True))
+    padded = pmf.pose_markers_lanes_cuda(*marker_operands(device, dtype, per_instance=True, lanes=328))
+    torch.cuda.synchronize()
+    valid = torch.triu(torch.ones(53, 53, dtype=torch.bool, device=device))
+    assert torch.equal(plain_bank[0][valid], padded[0][..., :300][valid])
+    assert all(torch.equal(a, b[..., :300]) for a, b in zip(plain_bank[1:], padded[1:]))
+    assert bool(torch.isfinite(padded[0][..., 300:][valid]).all())
+    assert all(bool(torch.isfinite(b[..., 300:]).all()) for b in padded[1:])
+
+
+def test_pose_markers_bank_update_launches_and_counts(device, monkeypatch):
+    """update_visual_features_bank on a CUDA bank launches K11 once, and its
+    result is the plain version's on the same bank."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+
+    bs, args = marker_bank(device, torch.float32, nb=NB, k=4, per_instance=True)
+    k11 = puf.cuda_lib.KERNELS["pose_markers"]
+    before = k11.launches
+    out, info = pukf.update_visual_features_bank(bs, None, *args)
+    torch.cuda.synchronize()
+    assert k11.launches == before + 1
+    assert info.mahalanobis2.shape == (NB, 4) and bool(info.accepted.all())
+    monkeypatch.setattr(pmf, "_pose_markers_lanes", pmf.pose_markers_lanes_plain)
+    ref, ref_info = pukf.update_visual_features_bank(bs, None, *args)
+    assert k11.launches == before + 1
+    assert _cov_err(pf.to_lanes(out).cov_t, pf.to_lanes(ref).cov_t, pf.to_lanes(bs).cov_t) <= LIMIT[torch.float32]
+    assert _rel(pf._pack_storage(out.mu), pf._pack_storage(ref.mu)) <= LIMIT[torch.float32]
+    assert _rel(info.mahalanobis2, ref_info.mahalanobis2) <= LIMIT[torch.float32]

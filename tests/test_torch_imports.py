@@ -15,8 +15,8 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import slam_uwv_kalman_filters_tpu_torch\n"
         "from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused, bottom_ukf, fleet_setup, indirect_fused, "
-        "indirect_pose_ukf, monte_carlo, pose_driver, pose_fused, pose_smoother, pose_ukf, pose_update_fused, "
-        "velocity_fused, velocity_ukf\n"
+        "indirect_pose_ukf, monte_carlo, pose_driver, pose_fused, pose_marker_fused, pose_smoother, pose_ukf, "
+        "pose_update_fused, velocity_fused, velocity_ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib, dynamics, geodesy, kernels, "
         "linalg_small, manifolds, ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.parallel import bank\n"

@@ -204,16 +204,19 @@ def test_banked_lanes_trajectory_1000_ticks_matches_jax():
 
 
 def test_marker_schedule_raises():
+    """A schedule with marker detections and no ``MarkerSetup`` in the
+    constants raises, as in JAX (the marker update itself is held to JAX in
+    tests/test_torch_pose_markers.py)."""
     state, bstate, params = _mission(2)
     tin = tdrv.make_inputs(3, DT, torch.zeros(3), acc=torch.zeros(3),
                            marker_features=torch.zeros(4, 2), marker_feature_covs=torch.eye(2).expand(4, 2, 2),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="marker kernel"):
+    with pytest.raises(ValueError, match="MarkerSetup"):
         tdrv.run_trajectory(pt(state), pt(params), tin)
     bank_in = tdrv.PoseInputs(*(None if x is None else x[:, None].expand(3, 2, *x.shape[1:]) for x in tin))
     for run in (tdrv.run_trajectory_bank, tdrv.run_trajectory_bank_lanes):
-        with pytest.raises(NotImplementedError, match="marker kernel"):
-            run(pt(bstate), pt(params), bank_in)
+        with pytest.raises(ValueError, match="MarkerSetup"):
+            run(pt(bstate), pt(params), bank_in, tdrv.PoseStepConstants(gps_in_body=torch.zeros(3)))
 
 
 def test_banked_lanes_replay_rejects_a_varying_interval():
