@@ -95,14 +95,44 @@ csrc`` and then, in order:
    schedule plus a 4-corner marker sighting every 100 ticks through
    ``pose_driver.run_trajectory_bank_lanes``, the float32 kernels against
    the float64 plain path on the card, and holds the marker NIS finite on
-   the sighting ticks and 0 elsewhere.
+   the sighting ticks and 0 elsewhere;
+23. (after the checks of 20) checks K12, the banked Cholesky, against its
+   plain version for n = 9, 53, 55, 59, 64 at banks 1, 127 and 300, float32
+   and float64, on matrices with the 53-DOF covariance's spread and NaN in
+   the unread upper half: explicit zeros above the diagonal, a non-SPD
+   matrix NaN in both, n = 65 refused; and K13, the FMA roofline probe,
+   against its plain version;
+24. runs the Cholesky bank: ``ops.kernels.cholesky_banked`` on the
+   covariance bank the shared mission second of 3 leaves (bank 131 072,
+   float32), counted (one K12), and checks and times K12 on its operands
+   beside its plain version and ``torch.linalg.cholesky_ex`` with the same
+   equilibration;
+25. runs the roofline: ``tools.roofline.measure_fma`` (chained K13
+   launches) and ``measure_hbm`` (the streaming triad), logged beside the
+   data sheet's peaks, and checks and times K13 on its operands;
+26. runs the delayed fixes at bank 131 072, float32: from the shared
+   second's end state, 200 states pushed at 100 Hz into per-instance
+   delayed-state buffers of 256 while each moves at a known velocity, then
+   one USBL-style fix 1 s late through
+   ``pose_ukf.update_delayed_position_buffered_bank`` (K3, XY model, χ²95)
+   and one through ``update_delayed_position_with_augmentation_bank`` (K1 at
+   n = 55), both timed and counted; K1 and K3 checked and timed on their
+   operands;
+27. runs one live vehicle through the reference's class API:
+   ``pose_ukf.PoseUKF`` on the card in float32 for 1000 ticks at 100 Hz
+   (prediction with the delayed buffer, acceleration every tick, DVL 5 Hz,
+   pressure 2 Hz, velocity-only body efforts 10 Hz, a fix 1 s late at
+   0.5 Hz), per-tick p50 and p99, and holds its final pose to the same ticks
+   through the class on the CPU in float64.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
 share, the fleet ATE, the trajectory differences, the BottomUKF and
 IndirectPoseUKF rates, the smoother's times and ATE, the marker-aided rate
-and the marker trajectory's differences, each new phase's seconds, and a
-JSON object with the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
+and the marker trajectory's differences, the measured FMA and memory
+ceilings, the delayed fixes' times and shares, the class's per-tick
+latency and pose differences, each new phase's seconds, and a JSON object
+with the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 
     python3 chip_smoke.py                       # the full run
@@ -135,6 +165,8 @@ TPU_KERNELS = {
     "indirect_predict": "slam_uwv_kalman_filters_tpu/models/indirect_fused.py:182",
     "indirect_markers": "slam_uwv_kalman_filters_tpu/models/indirect_fused.py:283",
     "pose_markers": "slam_uwv_kalman_filters_tpu/models/pose_marker_fused.py:93",
+    "cholesky": "slam_uwv_kalman_filters_tpu/ops/kernels.py:65",
+    "fma_probe": "tools/roofline.py:114",
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
 # bandwidth and float32 outside the tensor cores
@@ -143,7 +175,7 @@ F32_OPS_PER_S = 67e12
 # launch counts of the two main paths' timed mission seconds
 _NONE = {"sigma_deltas": 0, "pose_predict": 0, "pose_predict_full": 0, "pose_update_model": 0,
          "pose_update_tail": 0, "pose_step": 0, "velocity_step": 0, "bottom_step": 0, "solve_spd": 0,
-         "indirect_predict": 0, "indirect_markers": 0, "pose_markers": 0}
+         "indirect_predict": 0, "indirect_markers": 0, "pose_markers": 0, "cholesky": 0, "fma_probe": 0}
 SHARED_SECOND = {**_NONE, "pose_predict": 100, "pose_update_model": 118}
 MARKER_SECOND = {**SHARED_SECOND, "pose_markers": 1}
 BANKED_SECOND = {**_NONE, "sigma_deltas": 10, "pose_predict_full": 100, "pose_update_model": 108,
@@ -158,6 +190,10 @@ LIMITS = {torch.float64: 1e-9, torch.float32: 2e-3}
 # the checks' operands; measured on the CPU): two float32 versions may sit
 # that far on opposite sides, and 3× margin on that gives 2.1e-3
 MARKER_LIMITS = {torch.float64: 1e-9, torch.float32: 2.1e-3}
+# K13's float32 chain against its plain version, relative to the largest
+# output: 128 chained steps rounded once (fmaf) against twice or once
+# (addcmul); the two float32 versions sit ~2e-7 from float64 on the CPU
+PROBE_LIMIT = 1e-5
 # bench.py's small-filter bank (the BottomUKF and IndirectPoseUKF banks) and
 # the survey smoother's fleet of trajectories
 BOTTOM_BANK = 65536
@@ -286,6 +322,7 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
     from slam_uwv_kalman_filters_tpu_torch.ops import kernels
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
     def recording(fn, key):
         def wrapped(*args):
@@ -315,6 +352,8 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
         (ifu, "_indirect_markers_lanes",
          recording(ifu._indirect_markers_lanes, lambda a: f"indirect_markers[k={a[4].shape[0]}]")),
         (pmf, "_pose_markers_lanes", recording(pmf._pose_markers_lanes, lambda a: f"pose_markers[k={a[3].shape[0]}]")),
+        (kernels, "cholesky_lanes_cuda", recording(kernels.cholesky_lanes_cuda, lambda a: "cholesky")),
+        (roofline, "fma_probe_cuda", recording(roofline.fma_probe_cuda, lambda a: "fma_probe")),
     )
 
 
@@ -358,6 +397,7 @@ def _pair(name):
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
     from slam_uwv_kalman_filters_tpu_torch.ops import kernels
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
     return {
         "sigma_deltas": (kernels.sigma_deltas_lanes_cuda, kernels.sigma_deltas_lanes_plain),
@@ -372,6 +412,8 @@ def _pair(name):
         "indirect_predict": (ifu.indirect_predict_lanes_cuda, ifu.indirect_predict_lanes_plain),
         "indirect_markers": (ifu.indirect_markers_lanes_cuda, ifu.indirect_markers_lanes_plain),
         "pose_markers": (pmf.pose_markers_lanes_cuda, pmf.pose_markers_lanes_plain),
+        "cholesky": (kernels.cholesky_lanes_cuda, kernels.cholesky_lanes_plain),
+        "fma_probe": (roofline.fma_probe_cuda, roofline.fma_probe_plain),
     }[name]
 
 
@@ -386,6 +428,24 @@ def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> No
         dtype = ko.dtype
         scale = po.abs().amax(dim=(0, 1), keepdim=True)
         errs = {"abs": (ko - po).abs().max().item(), "rel": ((ko - po).abs() / scale).max().item()}
+    elif name == "cholesky":
+        # |ΔL(r, c)| over √A_rr: row r of the factor scales with it; a matrix
+        # whose factorization fails must be NaN in both, whole
+        dtype = ko.dtype
+        d = torch.sqrt(torch.diagonal(args[0], dim1=0, dim2=1).T)[None]
+        failed_k, failed_p = torch.isnan(ko).all(dim=0).all(dim=0), torch.isnan(po).all(dim=0).all(dim=0)
+        ok = ~failed_p
+        n = ko.shape[0]
+        upper = torch.tril(torch.ones(n, n, dtype=torch.bool, device=ko.device), -1)  # [c, r < c]
+        any_ok = bool(ok.any())
+        errs = {"abs": (ko - po)[..., ok].abs().max().item() if any_ok else 0.0,
+                "rel": ((ko - po).abs() / d)[..., ok].max().item() if any_ok else 0.0,
+                "failed_differ": float((failed_k != failed_p).sum().item()),
+                "finite": 0.0 if bool(torch.isfinite(ko[..., ok]).all()) else float("inf"),
+                "upper_nonzero": float((ko[..., ok][upper] != 0).sum().item())}
+    elif name == "fma_probe":
+        dtype = ko.dtype
+        errs = {"abs": (ko - po).abs().max().item(), "rel": ((ko - po).abs().max() / po.abs().max()).item()}
     elif name == "solve_spd":
         # D·X against its largest entry per column and instance, D = √diag A:
         # the equilibrated solve is accurate relative to that
@@ -453,7 +513,7 @@ def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> No
         flips = int(((ko[3] != po[3]) & ~near).sum().item())
         errs = {"abs": a, "cov": n_err, "mu": _rel(ko[1], po[1]), "m2": _rel(ko[2], po[2]),
                 "nu": _rel(ko[4], po[4]), "gate_flips": float(flips)}
-    limit = (MARKER_LIMITS if name == "pose_markers" else LIMITS)[dtype]
+    limit = PROBE_LIMIT if name == "fma_probe" else (MARKER_LIMITS if name == "pose_markers" else LIMITS)[dtype]
     ok = max(v for k, v in errs.items() if k != "abs") <= limit
     log(f"check {label} {str(dtype).split('.')[-1]}: "
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" limit={limit:.1e} {'ok' if ok else 'FAIL'}")
@@ -725,8 +785,23 @@ def _bound(name: str, args: tuple):
     half = n * (n + 1) // 2
     chol = n**3 / 3 + 2 * n * n  # factorization plus equilibration
     if name == "sigma_deltas":
-        nb = args[0].shape[-1]
-        elems, ops = half + K * n, chol + K * n
+        # n from the operands: the mission's 53, the delayed fix's 55
+        nb, n = args[0].shape[-1], args[0].shape[0]
+        half, chol = n * (n + 1) // 2, n**3 / 3 + 2 * n * n
+        elems, ops = half + (2 * n + 1) * n, chol + (2 * n + 1) * n
+    elif name == "cholesky":
+        # the lower half read, the whole factor written (zeros above the
+        # diagonal); the factorization, its equilibration and the back-scaling
+        nb, n = args[0].shape[-1], args[0].shape[0]
+        elems = n * (n + 1) // 2 + n * n
+        ops = n**3 / 3 + 2 * n * n + n * (n + 1) // 2
+    elif name == "fma_probe":
+        # a and b read, out written; 2·CHAIN for the chains, 3 to start them,
+        # 4 for the sum and its scale
+        from slam_uwv_kalman_filters_tpu_torch.tools.roofline import CHAIN
+
+        nb = args[0].numel()
+        elems, ops = 3, 2 * CHAIN + 7
     elif name in ("pose_predict", "pose_predict_full"):
         nb = args[0].shape[-1]
         per_lane = name == "pose_predict_full"
@@ -821,7 +896,7 @@ def _bound(name: str, args: tuple):
         ms = [len(z) for z in args[8]]
         elems = 10 + 4 + 6 + 3 + 13 + 16 + 4 + 13 + sum(m + m * m + 2 + m for m in ms)
         ops = (30 + 10 * 400 + 300 + 60 if args[1] else 0) + 150 * len(ms)
-    esize = next(a for a in args if isinstance(a, torch.Tensor) and a.ndim == 3).element_size()
+    esize = next(a for a in args if isinstance(a, torch.Tensor) and a.ndim in (1, 3)).element_size()
     t_bytes = elems * nb * esize / HBM_BYTES_PER_S
     t_ops = ops * nb / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -855,6 +930,21 @@ def _library_ms(name: str, args: tuple):
         rhs = (args[1].permute(2, 0, 1) / d[..., :, None]).contiguous()
         del spd
         return _median_ms("solve_spd", lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky_ex(corr)[0]), 10)
+    if name == "cholesky":
+        # the same function as one library factorization: equilibrate,
+        # cholesky_ex, scale back (the bank-first matrices, lower half valid)
+        from slam_uwv_kalman_filters_tpu_torch.models.pose_fused import _mirror_half
+
+        cov = _mirror_half(args[0]).permute(2, 1, 0).contiguous()
+        tiny = torch.finfo(cov.dtype).tiny
+
+        def library():
+            d = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1), min=tiny))
+            return torch.linalg.cholesky_ex(cov / (d[:, :, None] * d[:, None, :]))[0] * d[:, :, None]
+
+        ms = _median_ms("cholesky", library, 3)
+        del cov
+        return ms
     if name != "sigma_deltas":
         return None
     from slam_uwv_kalman_filters_tpu_torch.models.pose_fused import _mirror_half
@@ -885,7 +975,7 @@ def phase_mission_shapes(path: str, captured: dict, counts: dict, mission_counts
     per_key = {}
     for key, args in captured.items():
         name = key.split("[")[0]
-        nb = next(a.shape[-1] for a in args if isinstance(a, torch.Tensor) and a.ndim == 3)
+        nb = next(a.shape[-1] for a in args if isinstance(a, torch.Tensor) and a.ndim in (1, 3))
         compare(name, f"{key} main path bank={nb}", args, stats)
         kern, plain = _pair(name)
         p1, k1, k2, p2 = _time(lambda: plain(*args), 2), _time(lambda: kern(*args), 3), \
@@ -2075,6 +2165,280 @@ def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict
     return launches, {"ticks": n, "bank": nb, "forward_s": fwd, "backward_s": bwd, "ate": stats}
 
 
+# ---------------------------------------------------------------------------
+# the banked Cholesky K12, the roofline probe K13, the delayed fixes and the
+# PoseUKF class
+# ---------------------------------------------------------------------------
+
+
+def cholesky_check_operands(n: int, nb: int, dtype, device, gen: torch.Generator):
+    """(n, n, nb) SPD matrices in the lanes layout with the 53-DOF
+    covariance's spread (variances 1e-11 … 10, random correlations), NaN in
+    the unread upper half."""
+    f64 = torch.float64
+    g = torch.randn(nb, n, n, generator=gen, dtype=f64, device=device)
+    base = g @ g.transpose(1, 2) / n + torch.eye(n, dtype=f64, device=device)
+    s = torch.sqrt(torch.diagonal(base, dim1=1, dim2=2))
+    d = torch.sqrt(10.0 ** (12.0 * torch.rand(n, generator=gen, dtype=f64, device=device) - 11.0))
+    a_t = (base / (s[:, :, None] * s[:, None, :]) * d[None, :, None] * d[None, None, :]).permute(2, 1, 0)
+    lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=device), -1)[..., None]
+    return torch.where(lower, float("nan"), a_t).to(dtype).contiguous()
+
+
+def phase_checks_cholesky_probe(device):
+    """K12 against its plain version for n = 9, 53, 55, 59, 64 at banks 1,
+    127 and 300, float32 and float64 (explicit zeros above the diagonal; one
+    non-SPD matrix NaN in both, whole); n = 65 refused. K13 against its
+    plain version on random operands at the probe's size."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import kernels
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
+
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=device).manual_seed(37)
+        for n in (9, 53, 55, 59, 64):
+            for nb in (1, 127, 300):
+                a_t = cholesky_check_operands(n, nb, dtype, device, gen)
+                if nb == 127:
+                    a_t[n // 2, n // 2, 5] = -1.0  # not SPD
+                compare("cholesky", f"cholesky[n={n}, bank {nb}{', one non-SPD' if nb == 127 else ''}]", (a_t,))
+                if nb == 127 and not bool(torch.isnan(kernels.cholesky_lanes_cuda(a_t)[..., 5]).all()):
+                    raise AssertionError("K12 did not give NaN for a matrix that is not SPD")
+    try:
+        kernels.cholesky_banked(torch.eye(65, device=device).expand(2, 65, 65))
+    except ValueError as err:
+        log(f"check cholesky n=65: refused ({err})")
+    else:
+        raise AssertionError("K12 took n = 65")
+    gen = torch.Generator(device=device).manual_seed(39)
+    a = 0.75 + 0.5 * torch.rand(roofline.ELEMENTS, generator=gen, device=device)
+    b = 0.9 + 0.1 * torch.rand(roofline.ELEMENTS, generator=gen, device=device)
+    compare("fma_probe", f"fma_probe[{roofline.ELEMENTS} random elements]", (a, b))
+
+
+def phase_cholesky_bank(ls, like, captured: dict, counts: dict):
+    """The Cholesky path: ``ops.kernels.cholesky_banked`` on the covariance
+    bank the shared mission second leaves (bank-first, float32), with the
+    counters zeroed just before it and read just after; the factor finite,
+    zero above the diagonal, positive on it."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib, kernels
+
+    cov = pf.from_lanes(ls, like).cov
+    nb = cov.shape[0]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with capture_operands(captured, counts):
+        L = kernels.cholesky_banked(cov)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    log(f"Cholesky bank: bank={nb} n=53 float32 seconds={seconds:.6f} (layout copies included) launches={launches}")
+    if launches != {**_NONE, "cholesky": 1}:
+        raise AssertionError(f"the Cholesky bank launched {launches}, expected one K12")
+    diag = torch.diagonal(L, dim1=1, dim2=2)
+    if not (bool(torch.isfinite(L).all()) and bool((L.triu(1) == 0).all()) and bool((diag > 0).all())):
+        raise AssertionError("the Cholesky bank's factor is not finite lower-triangular with a positive diagonal")
+    del L, cov
+    return launches, 1e3 * seconds
+
+
+def phase_roofline(device, captured: dict, counts: dict):
+    """The roofline path: ``tools.roofline.measure_fma`` (chained K13
+    launches) and ``measure_hbm`` (the streaming triad), with the counters
+    zeroed just before and read just after, logged beside the data sheet's
+    peaks. Returns the launches, both rates and the K13 milliseconds of the
+    run at the measured rate."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with capture_operands(captured, counts):
+        fma = roofline.measure_fma(device=device)
+    hbm = roofline.measure_hbm(device=device)
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    log(f"roofline: float32 FMA {fma / 1e12:.3f} TFLOP/s ({100 * fma / F32_OPS_PER_S:.1f}% of the data sheet's "
+        f"{F32_OPS_PER_S / 1e12:.0f}), streaming triad {hbm / 1e12:.3f} TB/s ({100 * hbm / HBM_BYTES_PER_S:.1f}% of "
+        f"{HBM_BYTES_PER_S / 1e12:.2f}) launches={launches}")
+    if launches != {**_NONE, "fma_probe": counts["fma_probe"]} or counts["fma_probe"] < 2:
+        raise AssertionError(f"the roofline launched {launches}")
+    probe_ms = 1e3 * 2 * roofline.CHAIN * roofline.ELEMENTS * launches["fma_probe"] / fma
+    return launches, fma, hbm, probe_ms
+
+
+def phase_delayed_fixes(ls, like, params, captured: dict, counts: dict):
+    """The delayed fixes at the mission bank, float32: from the shared
+    second's end state (bank-first), 200 states pushed at 100 Hz into
+    per-instance delayed-state buffers of 256 (horizon 2 s) while each
+    instance moves at its own known velocity; then a USBL-style fix 1 s late
+    (the true position at that time plus 0.1 m of noise, R = 0.01·I) through
+    ``update_delayed_position_buffered_bank`` (one K3: XY, χ²95) and through
+    ``update_delayed_position_with_augmentation_bank`` (one K1 at n = 55,
+    the delayed position's covariance 0.01·I), each timed between a zeroing
+    and a reading of the counters. Returns the launches of both and the
+    figures of the kernels line."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+    from slam_uwv_kalman_filters_tpu_torch.utils import delayed_states as ds
+
+    bs = pf.from_lanes(ls, like)
+    nb, dtype, device = bs.cov.shape[0], bs.cov.dtype, bs.cov.device
+    gen = torch.Generator(device=device).manual_seed(53)
+    vel = 0.3 * torch.randn(nb, 3, generator=gen, dtype=dtype, device=device)
+    vel[:, 2] = 0.0
+    buf = bank.replicate(ds.make_buffer(256, 2, 2.0, dtype, device), nb)
+    t0 = time.perf_counter()
+    start = bs.mu.position
+    for k in range(200):
+        bs = bs._replace(mu=bs.mu._replace(position=start + vel * (DT * k)))
+        buf = pukf.push_delayed_state_bank(buf, bs, ds.from_seconds(DT * (k + 1)))
+    torch.cuda.synchronize()
+    push_s = time.perf_counter() - t0
+    now = ds.from_seconds(DT * 200)
+    truth = (start + vel * (DT * 99))[:, :2]  # where each instance was 1 s before the last push
+    z = truth + 0.1 * torch.randn(nb, 2, generator=gen, dtype=dtype, device=device)
+    r = 0.01 * torch.eye(2, dtype=dtype, device=device)
+    results = {}
+    for name in ("buffered", "augmented"):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with capture_operands(captured, counts):
+            if name == "buffered":
+                out, info, found = pukf.update_delayed_position_buffered_bank(bs, params, buf, now, z, r, 1.0)
+            else:
+                out, info = pukf.update_delayed_position_with_augmentation_bank(bs, params, z, r, truth, r)
+                found = torch.ones(nb, dtype=torch.bool, device=device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+        expected = {**_NONE, "pose_update_model" if name == "buffered" else "sigma_deltas": 1}
+        shares = {"found": found.double().mean().item(), "accepted": info.accepted.double().mean().item()}
+        log(f"delayed fixes ({name}): bank={nb} float32 {ms:.3f} ms found={shares['found']:.4f} "
+            f"accepted={shares['accepted']:.4f} NIS mean={info.mahalanobis2.double().mean().item():.4f} "
+            f"launches={launches}")
+        if launches != expected:
+            raise AssertionError(f"the {name} delayed fix launched {launches}, expected {expected}")
+        if not (bool(torch.isfinite(out.cov).all()) and bool(torch.isfinite(pf._pack_storage(out.mu)).all())
+                and bool((torch.diagonal(out.cov, dim1=1, dim2=2) > 0).all())):
+            raise AssertionError(f"the {name} delayed fix produced a non-finite state or a non-positive variance")
+        if shares["found"] != 1.0 or shares["accepted"] < 0.9:
+            raise AssertionError(f"the {name} delayed fix found or accepted too few fixes: {shares}")
+        results[name] = (launches, {"ms": ms, **shares})
+        del out, info
+    log(f"delayed fixes: 200 pushes into 256-slot buffers {1e3 * push_s:.1f} ms")
+    total = {k: results["buffered"][0][k] + results["augmented"][0][k] for k in _NONE}
+    return total, {"bank": nb, "push_200_ms": 1e3 * push_s, **{k: v[1] for k, v in results.items()}}
+
+
+def class_schedule(ticks: int, g0: float, efforts):
+    """The class path's measurements at bench.py's mission rates from a true
+    path that starts at the filter's pose (1, 2, −3), yaw 0.2 rad, and runs
+    at 0.3 m/s along body x while it turns at 0.01 rad/s, with seeded noise:
+    acceleration (the centripetal 0.003 m/s² and gravity), DVL, pressure at
+    3 m, the vehicle model's efforts for that motion, and a USBL-style XY
+    fix of where the vehicle was 1 s before."""
+    import numpy as np
+
+    rng = np.random.default_rng(43)
+    t = np.arange(ticks) * DT - 1.0
+    yaw = 0.2 + 0.01 * t
+    fix = np.stack([1.0 + 30.0 * (np.sin(yaw) - np.sin(0.2)), 2.0 - 30.0 * (np.cos(yaw) - np.cos(0.2))], -1)
+    return {
+        "acc": np.array([0.0, 0.003, g0]) + rng.normal(scale=0.006, size=(ticks, 3)),
+        "dvl": np.array([0.3, 0.0, 0.0]) + rng.normal(scale=0.03, size=(ticks, 3)),
+        "press": 101325.0 + 3.0 * g0 * 1027.0 + rng.normal(scale=50.0, size=(ticks, 1)),
+        "eff": np.asarray(efforts) + rng.normal(scale=1.0, size=(ticks, 6)),
+        "fix": fix + rng.normal(scale=0.3, size=(ticks, 2)),
+    }
+
+
+def pose_class_run(device, dtype, ticks: int):
+    """One vehicle through ``pose_ukf.PoseUKF`` on ``device`` in ``dtype``:
+    the delayed buffer (2 s, 256 slots) set up, then every tick the rotation
+    rate, ``prediction_step``, ``integrate_acceleration``; DVL every 20th
+    tick, pressure every 50th, velocity-only body efforts every 10th, a fix
+    1 s late through ``integrate_delayed_measurement`` every 200th. Returns
+    (final position, final orientation, per-tick ms, fixes found)."""
+    import numpy as np
+
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
+    from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as dyn
+    from slam_uwv_kalman_filters_tpu_torch.utils.config import default_pose_ukf_config
+
+    f = pukf.PoseUKF([1.0, 2.0, -3.0], np.eye(3) * 0.01, [np.cos(0.1), 0.0, 0.0, np.sin(0.1)], np.eye(3) * 1e-4,
+                     default_pose_ukf_config(), dyn.default_uwv_parameters(device=device), imu_delta_t=DT,
+                     imu_in_body_trans=[0.1, 0.0, -0.2], dtype=dtype, device=device)
+    model = dyn.default_uwv_parameters(device="cpu")
+    efforts = dyn.calc_efforts(model, torch.zeros(6, dtype=torch.float64),
+                               torch.tensor([0.3, 0.0, 0.0, 0.0, 0.0, 0.01], dtype=torch.float64),
+                               torch.tensor([np.cos(0.1), 0.0, 0.0, np.sin(0.1)], dtype=torch.float64))
+    sched = class_schedule(ticks, float(f.mu.gravity[0]), efforts.numpy())
+    r = {"acc": np.eye(3) * 4e-5, "dvl": np.eye(3) * 1e-3, "press": np.eye(1) * 2500.0, "eff": np.eye(6),
+         "fix": np.eye(2) * 0.09}
+    sync = torch.cuda.synchronize if f.sigma.device.type == "cuda" else (lambda: None)
+    f.setup_delayed_state_buffer(2.0, 256)
+    tick_ms, found = [], []
+    sync()
+    for k in range(ticks):
+        t0 = time.perf_counter()
+        f.integrate_rotation_rate([0.0, 0.0, 0.01])
+        f.prediction_step(DT)
+        f.integrate_acceleration(sched["acc"][k], r["acc"])
+        if k % 20 == 19:
+            f.integrate_velocity(sched["dvl"][k], r["dvl"])
+        if k % 50 == 49:
+            f.integrate_pressure(sched["press"][k], r["press"])
+        if k % 10 == 9:
+            f.integrate_body_efforts(sched["eff"][k], r["eff"], only_affect_velocity=True)
+        if k % 200 == 199:
+            found.append(f.integrate_delayed_measurement(sched["fix"][k], r["fix"], 1.0))
+        sync()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+    return f.mu.position.double().cpu(), f.mu.orientation.double().cpu(), tick_ms, found
+
+
+def phase_pose_class(device, ticks: int):
+    """The class path: :func:`pose_class_run` on the card in float32 with the
+    counters zeroed just before and read just after, per-tick p50 and p99,
+    and its final pose against the same ticks through the class on the CPU
+    in float64."""
+    import numpy as np
+
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    pos32, q32, tick_ms, found = pose_class_run(device, torch.float32, ticks)
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    card_s = time.perf_counter() - t0
+    pos64, q64, _, found64 = pose_class_run("cpu", torch.float64, ticks)
+    dpos = (pos32 - pos64).norm().item()
+    dang = mf.so3_boxminus(q32, q64).norm().item()
+    # 3x the class's own float32-vs-float64 drift over these 1000 ticks on the
+    # CPU (pose_class_run on CPU tensors: 4.36e-4 m, 1.82e-5 rad)
+    limits = {"position_m": 1.31e-3, "orientation_rad": 5.5e-5}
+    p50, p99 = float(np.percentile(tick_ms, 50)), float(np.percentile(tick_ms, 99))
+    updates = ticks * 2 + ticks // 20 + ticks // 50 + ticks // 10 + ticks // 200
+    log(f"PoseUKF class: bank=1 float32 {ticks} ticks per-tick p50={p50:.3f} ms p99={p99:.3f} ms "
+        f"card run {card_s:.1f} s, |Δposition| against the CPU float64 class={dpos:.3e} m "
+        f"(limit {limits['position_m']:.1e}) |Δorientation|={dang:.3e} rad (limit {limits['orientation_rad']:.1e}) "
+        f"fixes found {sum(found)}/{len(found)} launches={launches} wall={time.perf_counter() - t0:.1f}s")
+    if launches != {**_NONE, "sigma_deltas": updates}:
+        raise AssertionError(f"the class launched {launches}, expected {updates} K1")
+    if found != found64 or not all(found):
+        raise AssertionError(f"the class's delayed fixes: found {found} on the card, {found64} on the CPU")
+    if not (dpos <= limits["position_m"] and dang <= limits["orientation_rad"]):
+        raise AssertionError("the float32 class on the card left the float64 class on the CPU")
+    return launches, {"ticks": ticks, "tick_ms_p50": p50, "tick_ms_p99": p99, "position_diff_m": dpos,
+                      "orientation_diff_rad": dang}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--bank", type=int, default=131072, help="mission-second bank (default 131072)")
@@ -2115,12 +2479,41 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_checks_pose_markers(device)
     log(f"phase pose_markers checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_checks_cholesky_probe(device)
+    log(f"phase cholesky and fma_probe checks: {time.perf_counter() - t0:.1f} s")
     captured, counts, stats = {}, {}, {}
     ls, like, params, meas, shared, rate, mission_counts = phase_mission(device, args.bank, captured, counts)
     generic = phase_generic(ls, like, params, meas, captured, counts)
     times = phase_mission_shapes("mission second (shared parameters)", captured, counts, mission_counts,
                                  1e3 * args.bank * 100 / rate, stats)
     del captured
+    t0 = time.perf_counter()
+    captured, counts = {}, {}
+    cholesky_launches, cholesky_ms = phase_cholesky_bank(ls, like, captured, counts)
+    times.update(phase_mission_shapes("Cholesky bank", captured, counts, {"cholesky": 1}, cholesky_ms, stats))
+    log(f"phase Cholesky bank: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    captured, counts = {}, {}
+    delayed_launches, delayed = phase_delayed_fixes(ls, like, params, captured, counts)
+    # K1 at n = 55 and K3's XY model on these operands; the table keeps the
+    # mission's times of K1 and K3
+    delayed["kernel_times_ms"] = {
+        name: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), v))
+        for name, v in phase_mission_shapes(
+            "delayed fixes", captured, counts, {"pose_update_model[xy_position]": 1, "sigma_deltas": 1},
+            delayed["buffered"]["ms"] + delayed["augmented"]["ms"], stats).items()}
+    log(f"phase delayed fixes: {time.perf_counter() - t0:.1f} s")
+    del captured
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    captured, counts = {}, {}
+    probe_launches, fma, hbm, probe_ms = phase_roofline(device, captured, counts)
+    times.update(phase_mission_shapes("roofline", captured, counts, {"fma_probe": counts["fma_probe"]}, probe_ms,
+                                      stats))
+    log(f"phase roofline: {time.perf_counter() - t0:.1f} s")
+    del captured
+    torch.cuda.empty_cache()
     idle = phase_profile(ls, params, meas)
     chain_ls = ls  # the chain's state after its two mission seconds
     del ls, like, params, meas
@@ -2181,6 +2574,9 @@ def main() -> int:
     t0 = time.perf_counter()
     marker_trajectory = phase_marker_trajectory(device, args.ticks)
     log(f"phase marker trajectory: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    class_launches, pose_class = phase_pose_class(device, args.ticks)
+    log(f"phase PoseUKF class: {time.perf_counter() - t0:.1f} s")
 
     # launches of each main path: the counters zeroed just before it, read just after
     paths = {
@@ -2188,6 +2584,8 @@ def main() -> int:
         "online_latency": latency_launches, "online_estimator": estimator_launches,
         "velocity_bank": velocity, "bottom_bank": bottom, "survey_smoother": smoother_launches,
         "indirect_bank": indirect, "marker_mission_second": marker, "marker_trajectory": marker_trajectory,
+        "cholesky_bank": cholesky_launches, "roofline": probe_launches, "delayed_fixes": delayed_launches,
+        "pose_class": class_launches,
     }
     missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
     if missing:
@@ -2217,6 +2615,8 @@ def main() -> int:
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,
         "marker_mission_ticks_per_s": rate_marker,
         "survey_smoother": smoother,
+        "measured_fma_flops_per_s": fma, "measured_hbm_bytes_per_s": hbm,
+        "cholesky_bank_ms": cholesky_ms, "delayed_fixes": delayed, "pose_class": pose_class,
         "dtype": "float32", "device_idle_share": idle, "fleet_ate": fleet, "card": smi,
         "wall_s": time.perf_counter() - t_start}
     log(json.dumps(table))

@@ -5,10 +5,13 @@ velocity, acceleration, IMU biases, gravity, the (x, y, ψ) inertia and
 damping sub-model, water currents, ADCP bias and water density.
 
 This port holds the constructors, the process model and process-noise
-assembly, prediction, and the measurement updates of the mission driver
-(velocity, acceleration, z and xy position, geographic position, delayed
-position, pressure, water velocity, body efforts in full mode, visual
-markers through the 59-DOF augmentation), each in solo and ``_bank`` form.
+assembly, prediction, the measurement updates (velocity, acceleration, z
+and xy position, geographic position, delayed position, pressure, water
+velocity, body efforts in full mode and velocity-only, visual markers
+through the 59-DOF augmentation), the delayed-state surface (out-of-sequence
+fixes through the delayed-state buffer, the 55-DOF augmented delayed fix,
+the external-pose reset), each in solo and ``_bank`` form, and the
+reference's ``PoseUKF`` class over the solo functions.
 
 * Solo functions take one filter (leaves without a bank axis) and run the
   generic path (``ops/ukf.py``) on a bank of one.
@@ -25,15 +28,18 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import dynamics as dyn
 from ..ops import geodesy as geo
 from ..ops import manifolds as mf
 from ..ops import ukf
-from ..parallel.bank import tree_map
+from ..parallel.bank import select_where, tree_map
+from ..utils import delayed_states
 from ..utils.config import CameraConfiguration, PoseUKFConfig
 from ..utils.device import resolve_device
+from ..utils.validation import check_measurement
 from .indirect_pose_ukf import _as, _check_corners, pixel_cov_to_s2, pixel_to_s2
 
 __all__ = [
@@ -76,6 +82,16 @@ __all__ = [
     "update_delayed_position_bank",
     "update_visual_features",
     "update_visual_features_bank",
+    "PoseStateWithDelayedPosition",
+    "POSE_DELAYED_MANIFOLD",
+    "update_delayed_position_with_augmentation",
+    "update_delayed_position_with_augmentation_bank",
+    "push_delayed_state",
+    "push_delayed_state_bank",
+    "update_delayed_position_buffered",
+    "update_delayed_position_buffered_bank",
+    "reset_with_external_pose",
+    "PoseUKF",
 ]
 
 
@@ -817,12 +833,41 @@ def update_water_velocity(state, params, z, meas_cov, cell_weighting):
     )
 
 
-def update_body_efforts(state, params, z, meas_cov):
-    """Model-aided effort measurement, full mode."""
+def _constrain_velocity_measurement(chi: PoseState, params: PoseUKFParams, rotation_rate_body, water_velocity,
+                                    orientation, acceleration_body) -> torch.Tensor:
+    """``constrainVelocity`` (``PoseUKF.cpp:199-219``): only the velocity
+    varies per sigma point; the orientation, the body acceleration and the
+    water current are frozen at the current mean. It uses the base vehicle
+    model as JAX pins it (the reference mutates a shared DynamicModel, so
+    there it would follow the last ``setUWVParameters`` call)."""
+    rr = rotation_rate_body
+    velocity_body = mf.quat_rotate_inv(orientation, chi.velocity) - mf._cross(rr, params.imu_in_body)
+    velocity_body = velocity_body - mf.quat_rotate_inv(orientation, water_velocity)
+    vel6 = torch.cat([velocity_body, rr.expand_as(velocity_body)], dim=-1)
+    acc6 = torch.cat([acceleration_body.expand_as(velocity_body), torch.zeros_like(velocity_body)], dim=-1)
+    return dyn.calc_efforts(params.model, acc6, vel6, orientation)
+
+
+def update_body_efforts(state, params, z, meas_cov, only_affect_velocity: bool = False):
+    """Model-aided effort measurement (``PoseUKF.cpp:581-602``): the full
+    model, or with ``only_affect_velocity`` the velocity-only constraint."""
     rr_body = get_rotation_rate(state, params)
-    return _solo_update(
-        state, params, z, meas_cov, lambda chi: _efforts_measurement(chi, params, rr_body)
-    )
+    if only_affect_velocity:
+        mu = state.mu
+        water_velocity = torch.cat([mu.water_velocity, torch.zeros_like(mu.water_velocity[:1])])
+        acceleration_body = mf.quat_rotate_inv(mu.orientation, mu.acceleration) - mf._cross(
+            rr_body, mf._cross(rr_body, params.imu_in_body)
+        )
+
+        def h(chi):
+            return _constrain_velocity_measurement(chi, params, rr_body, water_velocity, mu.orientation,
+                                                   acceleration_body)
+    else:
+
+        def h(chi):
+            return _efforts_measurement(chi, params, rr_body)
+
+    return _solo_update(state, params, z, meas_cov, h)
 
 
 def update_geographic_position(state, params, lat, lon, meas_cov, gps_in_body=None):
@@ -931,3 +976,303 @@ def update_visual_features_bank(bstate: PoseUKFState, params: PoseUKFParams, mar
         bstate, feats, fcovs.expand(nb, k, 2, 2), fpos, _as(marker_position, c).expand(nb, 3),
         _as(marker_orientation, c).expand(nb, 4), _as(cov_marker_pose, c), camera, _as(camera_in_imu_position, c),
         _as(camera_in_imu_orientation, c))
+
+
+# ---------------------------------------------------------------------------
+# the delayed-state surface (PoseUKF.cpp:467-473, 529-557, 656-691)
+# ---------------------------------------------------------------------------
+
+
+class PoseStateWithDelayedPosition(NamedTuple):
+    """``MTK_BUILD_MANIFOLD(PoseStateWithDelayedPosition, ...)``
+    (``src/PoseUKF.cpp:248-252``), flattened: the 53 DOF of
+    :class:`PoseState`, then the delayed XY position (55 DOF)."""
+
+    position: torch.Tensor
+    orientation: torch.Tensor
+    velocity: torch.Tensor
+    acceleration: torch.Tensor
+    bias_gyro: torch.Tensor
+    bias_acc: torch.Tensor
+    gravity: torch.Tensor
+    inertia: torch.Tensor
+    lin_damping: torch.Tensor
+    quad_damping: torch.Tensor
+    water_velocity: torch.Tensor
+    water_velocity_below: torch.Tensor
+    bias_adcp: torch.Tensor
+    water_density: torch.Tensor
+    delayed_position: torch.Tensor  # (2,)
+
+
+POSE_DELAYED_MANIFOLD = mf.make_manifold(*POSE_MANIFOLD.fields, mf.Field("delayed_position", "vec", 2))
+if POSE_DELAYED_MANIFOLD.dof != 55:
+    raise AssertionError("PoseStateWithDelayedPosition must have 55 tangent DOF")
+
+
+def _augmented_delayed_generic(bstate: PoseUKFState, z, meas_cov, delayed_position, cov_delayed_position):
+    """The 55-DOF augmented delayed fix of a bank: z (B, 2), meas_cov (2, 2)
+    or (B, 2, 2), delayed_position (B, 2), cov_delayed_position (2, 2) or
+    (B, 2, 2). The filter ⊕ the delayed position with zero cross-covariance,
+    the delayed block observed through the shift identity anchored at each
+    instance's current mean position, the filter block marginalized back."""
+    nb, dtype, dev = bstate.cov.shape[0], bstate.cov.dtype, bstate.cov.device
+    aug_mu = PoseStateWithDelayedPosition(*bstate.mu, delayed_position=delayed_position)
+    n = POSE_DELAYED_MANIFOLD.dof
+    aug_cov = torch.zeros(nb, n, n, dtype=dtype, device=dev)
+    aug_cov[:, :53, :53] = bstate.cov
+    aug_cov[:, 53:, 53:] = cov_delayed_position
+    current_xy = bstate.mu.position[:, :2]
+
+    def h(chi: PoseStateWithDelayedPosition):
+        return chi.delayed_position + (chi.position[..., :2] - current_xy)
+
+    aug_mu, aug_cov, info = ukf.update(POSE_DELAYED_MANIFOLD, aug_mu, aug_cov, z, h, meas_cov)
+    return bstate._replace(mu=PoseState(*aug_mu[:14]), cov=aug_cov[:, :53, :53].contiguous()), info
+
+
+def update_delayed_position_with_augmentation(state: PoseUKFState, params: PoseUKFParams, z, meas_cov,
+                                              delayed_position, cov_delayed_position):
+    """The state-augmentation delayed-position update the reference designed
+    but left disabled (``integrateDelayedPositionMeasurementWithStateAugmentation``,
+    ``src/PoseUKF.cpp:529-557``): augment with the delayed position, observe
+    it through z ≈ delayed + (position − current mean position)
+    (``measurementDelayedPosition``, ``:254-259``), marginalize back. Unlike
+    the shift path it uses the delayed position's own uncertainty."""
+    c = state.cov
+    return _solo(_augmented_delayed_generic, state, _as(z, c)[None], _as(meas_cov, c), _as(delayed_position, c)[None],
+                 _as(cov_delayed_position, c))
+
+
+def update_delayed_position_with_augmentation_bank(bstate: PoseUKFState, params: PoseUKFParams, z, meas_cov,
+                                                   delayed_position, cov_delayed_position):
+    """Bank form of :func:`update_delayed_position_with_augmentation`: every
+    measurement operand shared or per instance, broadcast to the bank. One
+    banked update at n = 55 (K1 carries its sigma deltas on a CUDA bank), no
+    loop over instances."""
+    nb, c = bstate.cov.shape[0], bstate.cov
+    return _augmented_delayed_generic(
+        bstate, _as(z, c).expand(nb, 2), _as(meas_cov, c).expand(nb, 2, 2), _as(delayed_position, c).expand(nb, 2),
+        _as(cov_delayed_position, c).expand(nb, 2, 2))
+
+
+def push_delayed_state(buffer: delayed_states.DelayedStates, state: PoseUKFState,
+                       filter_ts_us) -> delayed_states.DelayedStates:
+    """Record the current XY position and its covariance block in the
+    delayed-state buffer — the prediction-side bookkeeping the reference
+    sketches at ``src/PoseUKF.cpp:467-473``."""
+    s = POSE_MANIFOLD.block("position")
+    xy_cov = state.cov[..., s, s][..., :2, :2]
+    return delayed_states.push(buffer, filter_ts_us, state.mu.position[..., :2], xy_cov)
+
+
+def push_delayed_state_bank(buffer: delayed_states.DelayedStates, bstate: PoseUKFState,
+                            filter_ts_us) -> delayed_states.DelayedStates:
+    """Bank form of :func:`push_delayed_state`: ``buffer`` carries a leading
+    bank axis on every leaf (``parallel.bank.replicate(delayed_states.make_buffer(...), B)``);
+    ``filter_ts_us`` is shared or (B,)."""
+    return push_delayed_state(buffer, bstate, filter_ts_us)
+
+
+def _buffered(update_xy, state, params, buffer, filter_ts_us, z, meas_cov, delay_seconds):
+    """The buffered delayed fix on one filter or a bank (``update_xy`` is the
+    solo or the bank XY update): closest-state lookup, shift identity, χ²-95
+    gate; ``found`` and the gate as masked selects."""
+    c = state.cov
+    ts = filter_ts_us - delayed_states.from_seconds(delay_seconds)
+    delayed_xy, _, found = delayed_states.closest(buffer, ts)
+    shifted = _as(z, c) + (state.mu.position[..., :2] - delayed_xy)
+    new_state, info = update_xy(state, params, shifted, meas_cov, ukf.D2P95)
+    keep = info.accepted & found
+    out = select_where(keep, new_state, state)._replace(rotation_rate=state.rotation_rate)
+    # with found False the lookup, and so the innovation and NIS, mean nothing:
+    # neutralize them so NIS monitoring never records a phantom update
+    info = ukf.UpdateInfo(
+        mahalanobis2=torch.where(found, info.mahalanobis2, torch.zeros_like(info.mahalanobis2)),
+        accepted=keep,
+        innovation=torch.where(found[..., None], info.innovation, torch.zeros_like(info.innovation)),
+    )
+    return out, info, found
+
+
+def update_delayed_position_buffered(state: PoseUKFState, params: PoseUKFParams,
+                                     buffer: delayed_states.DelayedStates, filter_ts_us, z, meas_cov, delay_seconds):
+    """Out-of-sequence XY fix through the delayed-state buffer — the
+    ``integrateDelayedMeasurement`` path (``src/PoseUKF.cpp:656-683``): look
+    up the filter position closest to (now − delay), anchor the fix through
+    the shift identity, χ²-95 gate. Returns (state, info, found); found False
+    (the delay beyond the buffer's horizon) leaves the state untouched, as
+    the reference's bool return does. Nothing is read back to the host."""
+    return _buffered(update_xy_position, state, params, buffer, filter_ts_us, z, meas_cov, delay_seconds)
+
+
+def update_delayed_position_buffered_bank(bstate: PoseUKFState, params: PoseUKFParams,
+                                          buffer: delayed_states.DelayedStates, filter_ts_us, z, meas_cov,
+                                          delay_seconds):
+    """Bank form of :func:`update_delayed_position_buffered` over
+    per-instance buffers (a leading bank axis on every leaf): ``z`` (B, 2)
+    or (2,), ``delay_seconds`` a scalar or (B,) (per-vehicle latency). The
+    XY update is the bank's (K3 on a CUDA bank). Instances whose delay
+    exceeds their buffer's horizon are left untouched with neutralized info."""
+    return _buffered(update_xy_position_bank, bstate, params, buffer, filter_ts_us, z, meas_cov, delay_seconds)
+
+
+def reset_with_external_pose(state: PoseUKFState, position, orientation) -> PoseUKFState:
+    """``resetFilterWithExternalPose`` (``PoseUKF.cpp:685-691``): overwrite
+    the pose sub-state, keep everything else including the covariance."""
+    c = state.cov
+    return state._replace(mu=state.mu._replace(position=_as(position, c), orientation=_as(orientation, c)))
+
+
+# ---------------------------------------------------------------------------
+# the reference's class API (src/PoseUKF.hpp:91-191)
+# ---------------------------------------------------------------------------
+
+
+class PoseUKF:
+    """One filter behind the reference's class API, over the solo functions
+    above (banks use the ``*_bank`` functions). The constructor builds on the
+    card unless given ``device="cpu"`` (``utils/device.py``), in ``dtype``;
+    measurements are checked on the host (``utils/validation``) and then
+    moved to the filter's device and dtype."""
+
+    def __init__(self, imu_in_nwu_pos, imu_in_nwu_pos_cov, imu_in_nwu_rot, imu_in_nwu_rot_cov,
+                 config: PoseUKFConfig, model_parameters: dyn.UWVParameters, imu_delta_t: float = 0.01,
+                 imu_in_body_rot=None, imu_in_body_trans=None, dtype=torch.float64, device=None):
+        self.state, self.params = init_from_pose(
+            imu_in_nwu_pos, imu_in_nwu_pos_cov, imu_in_nwu_rot, imu_in_nwu_rot_cov, config, model_parameters,
+            imu_delta_t, imu_in_body_rot, imu_in_body_trans, dtype, device,
+        )
+        self._delayed_buffer = None
+        self._filter_ts = 0
+
+    @classmethod
+    def from_state(cls, initial_state: PoseState, state_cov, params: PoseUKFParams, dtype=torch.float64,
+                   device=None) -> "PoseUKF":
+        """Second ctor: resume from an explicit state, covariance and
+        parameters, moved to ``device`` (``None``: the card) and ``dtype``."""
+        device = resolve_device(device)
+
+        def to(a):
+            if not isinstance(a, torch.Tensor):
+                return a
+            return a.to(device=device, dtype=dtype if a.is_floating_point() else a.dtype)
+
+        obj = cls.__new__(cls)
+        obj.params = tree_map(to, params)
+        obj.state = init_from_state(tree_map(to, initial_state), to(torch.as_tensor(state_cov)), obj.params)
+        obj._delayed_buffer = None
+        obj._filter_ts = 0
+        return obj
+
+    def _t(self, value) -> torch.Tensor:
+        return _as(value, self.state.cov)
+
+    def set_process_noise_from_config(self, config: PoseUKFConfig, imu_delta_t: float, imu_in_body_rot=None) -> None:
+        """``setProcessNoiseFromConfig``; Q is pinned to the filter's dtype
+        and device (a float64 Q would promote a float32 filter's covariance
+        on the next predict)."""
+        c = self.state.cov
+        self.params = self.params._replace(
+            process_noise=process_noise_from_config(config, imu_delta_t, imu_in_body_rot, c.dtype, c.device))
+
+    def set_process_noise_covariance(self, q) -> None:
+        """The filter base class's raw-Q setter (``setProcessNoiseCovariance``,
+        called at ``src/PoseUKF.cpp:438``), pinned to the filter's dtype."""
+        self.params = self.params._replace(process_noise=self._t(q))
+
+    def _upd(self, fn, mu, cov, *args) -> ukf.UpdateInfo:
+        check_measurement(mu, cov)
+        self.state, info = fn(self.state, self.params, self._t(mu), self._t(cov), *args)
+        return info
+
+    def integrate_velocity(self, mu, cov):
+        return self._upd(update_velocity, mu, cov)
+
+    def integrate_acceleration(self, mu, cov):
+        return self._upd(update_acceleration, mu, cov)
+
+    def integrate_rotation_rate(self, mu, cov=None) -> None:
+        if cov is not None:
+            check_measurement(mu, cov)
+        self.state = integrate_rotation_rate(self.state, self._t(mu))
+
+    def integrate_z_position(self, mu, cov):
+        return self._upd(update_z_position, mu, cov)
+
+    def integrate_xy_position(self, mu, cov):
+        return self._upd(update_xy_position, mu, cov)
+
+    def integrate_delayed_position(self, mu, cov, delayed_position):
+        return self._upd(update_delayed_position, mu, cov, self._t(delayed_position))
+
+    def integrate_pressure(self, mu, cov, pressure_sensor_in_imu=None):
+        lever = None if pressure_sensor_in_imu is None else self._t(pressure_sensor_in_imu)
+        return self._upd(update_pressure, mu, cov, lever)
+
+    def integrate_geographic_position(self, lat, lon, cov, gps_in_body=None):
+        check_measurement(np.asarray([lat, lon], np.float64), cov)
+        g = None if gps_in_body is None else self._t(gps_in_body)
+        self.state, info = update_geographic_position(self.state, self.params, self._t(lat), self._t(lon),
+                                                      self._t(cov), g)
+        return info
+
+    def integrate_body_efforts(self, mu, cov, only_affect_velocity: bool = False):
+        return self._upd(update_body_efforts, mu, cov, only_affect_velocity)
+
+    def integrate_water_velocity(self, mu, cov, cell_weighting):
+        return self._upd(update_water_velocity, mu, cov, cell_weighting)
+
+    def integrate_visual_features(self, marker_features, feature_covs, feature_positions, marker_position,
+                                  marker_orientation, cov_marker_pose, camera: CameraConfiguration,
+                                  camera_in_imu_position, camera_in_imu_orientation):
+        for feature, feature_cov in zip(marker_features, feature_covs):
+            check_measurement(feature, feature_cov)
+        self.state, info = update_visual_features(
+            self.state, self.params, marker_features, feature_covs, feature_positions, marker_position,
+            marker_orientation, cov_marker_pose, camera, camera_in_imu_position, camera_in_imu_orientation)
+        return info
+
+    def setup_delayed_state_buffer(self, maximum_delay: float, capacity: int = 256) -> None:
+        """``setupDelayedStateBuffer`` (``src/PoseUKF.hpp:130-133``): allocate
+        the XY delayed-state buffer on the filter's device; every
+        :meth:`prediction_step` then records the position block
+        (``src/PoseUKF.cpp:467-473``)."""
+        c = self.state.cov
+        self._delayed_buffer = delayed_states.make_buffer(capacity, 2, maximum_delay, c.dtype, c.device)
+        self._filter_ts = delayed_states.from_seconds(0.0)
+
+    def prediction_step(self, dt: float) -> None:
+        self.state = predict(self.state, self.params, dt)
+        if self._delayed_buffer is not None:
+            self._filter_ts = self._filter_ts + delayed_states.from_seconds(dt)
+            self._delayed_buffer = push_delayed_state(self._delayed_buffer, self.state, self._filter_ts)
+
+    def integrate_delayed_measurement(self, mu, cov, delay: float) -> bool:
+        """``integrateDelayedMeasurement`` (``src/PoseUKF.cpp:656-683``): an
+        out-of-sequence XY fix through the delayed-state buffer; False when
+        the delay exceeds the buffer's horizon (one read back to the host)."""
+        if self._delayed_buffer is None:
+            raise RuntimeError("setup_delayed_state_buffer was not called")
+        check_measurement(mu, cov)
+        self.state, _, found = update_delayed_position_buffered(
+            self.state, self.params, self._delayed_buffer, self._filter_ts, self._t(mu), self._t(cov), delay)
+        return bool(found)
+
+    def integrate_delayed_position_with_augmentation(self, mu, cov, delayed_position, cov_delayed_position):
+        return self._upd(update_delayed_position_with_augmentation, mu, cov, self._t(delayed_position),
+                         self._t(cov_delayed_position))
+
+    def reset_filter_with_external_pose(self, position, orientation) -> None:
+        self.state = reset_with_external_pose(self.state, position, orientation)
+
+    def get_rotation_rate(self) -> torch.Tensor:
+        return get_rotation_rate(self.state, self.params)
+
+    @property
+    def mu(self) -> PoseState:
+        return self.state.mu
+
+    @property
+    def sigma(self) -> torch.Tensor:
+        return self.state.cov

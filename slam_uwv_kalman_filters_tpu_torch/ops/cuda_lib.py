@@ -43,19 +43,21 @@ _F64 = ctypes.c_double
 
 
 class Kernel:
-    """One hand-written kernel: C entry points ``<symbol>_f32``/``_f64``
-    taking ``argtypes``, the source it lives in and a launch counter."""
+    """One hand-written kernel: C entry points ``<symbol>_<suffix>`` for each
+    of ``suffixes`` (``f32``, ``f64``) taking ``argtypes``, the source it
+    lives in and a launch counter."""
 
-    def __init__(self, name: str, symbol: str, source: str, argtypes: tuple):
+    def __init__(self, name: str, symbol: str, source: str, argtypes: tuple, suffixes=("f32", "f64")):
         self.name = name
         self.symbol = symbol
         self.source = source
         self.argtypes = argtypes
+        self.suffixes = suffixes
         self.launches = 0
 
     def launch(self, dtype: torch.dtype, *args) -> None:
         suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
-        if suffix is None:
+        if suffix not in self.suffixes:
             raise TypeError(f"{self.name}: no kernel for dtype {dtype}")
         rc = getattr(library(), f"{self.symbol}_{suffix}")(*args)
         if rc != 0:
@@ -129,6 +131,16 @@ KERNELS = {
         # cov_t, mu_t, mk_t, z_t, r_t, scal, k, cov_out, mu_out, m2, nu_t, a, c, bear, w, nb, stream
         (_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     ),
+    "cholesky": Kernel(
+        "cholesky", "slam_cholesky", "csrc/cholesky.cu",
+        # a_t, out_t, n, nb, stream
+        (_P, _P, _I32, _I64, _P),
+    ),
+    "fma_probe": Kernel(
+        "fma_probe", "slam_fma_probe", "csrc/fma_probe.cu",
+        # a, b, out, n, stream
+        (_P, _P, _P, _I64, _P), suffixes=("f32",),
+    ),
 }
 
 
@@ -194,7 +206,7 @@ def library() -> ctypes.CDLL:
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for k in KERNELS.values():
-        for suffix in ("f32", "f64"):
+        for suffix in k.suffixes:
             fn = getattr(lib, f"{k.symbol}_{suffix}")
             fn.argtypes = list(k.argtypes)
             fn.restype = ctypes.c_int

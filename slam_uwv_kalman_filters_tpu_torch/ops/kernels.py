@@ -1,15 +1,18 @@
-"""Sigma-point deltas and the banked SPD solve of the generic UKF — kernels
-K1 and K8 and their plain versions.
+"""The banked Cholesky, the sigma-point deltas and the banked SPD solve of
+the generic UKF — kernels K12, K1 and K8 and their plain versions.
 
-Counterpart of ``slam_uwv_kalman_filters_tpu/ops/kernels.py``: the fused
-equilibrated Cholesky → ±column sigma deltas (``_sigma_deltas_kernel`` and
-its core ``equilibrated_sigma_columns``), and the equilibrated Cholesky →
-two triangular substitutions X = A⁻¹B (``_solve_spd_kernel``). On a CUDA
-tensor :func:`sigma_deltas_banked` (bank-first) and
+Counterpart of ``slam_uwv_kalman_filters_tpu/ops/kernels.py``: the banked
+lower Cholesky (``_cholesky_lanes_kernel``, entry points ``cholesky_banked``
+and ``cholesky_fast``), the fused equilibrated Cholesky → ±column sigma
+deltas (``_sigma_deltas_kernel`` and its core
+``equilibrated_sigma_columns``), and the equilibrated Cholesky → two
+triangular substitutions X = A⁻¹B (``_solve_spd_kernel``). On a CUDA tensor
+:func:`cholesky_banked` launches the hand-written kernel of
+``csrc/cholesky.cu``, :func:`sigma_deltas_banked` (bank-first) and
 :func:`sigma_deltas_lanes` (bank-last, the lanes layout of
-``models/pose_fused.py``) launch the hand-written kernel of
-``csrc/sigma_deltas.cu``, and :func:`solve_spd_banked` that of
-``csrc/solve_spd.cu``; on a CPU tensor they run the plain version.
+``models/pose_fused.py``) that of ``csrc/sigma_deltas.cu``, and
+:func:`solve_spd_banked` that of ``csrc/solve_spd.cu``; on a CPU tensor they
+run the plain version.
 
 The deltas are ukfom-ordered: row 0 zero, rows 2j+1 / 2j+2 the ±j-th column
 of L = D·chol(D⁻¹·A·D⁻¹), D = √max(diag A, tiny). The diagonal equilibration
@@ -26,7 +29,14 @@ from .linalg_small import UNROLL_LIMIT, cholesky_unrolled, solve_spd
 
 __all__ = [
     "MAX_N",
+    "cholesky_banked",
+    "cholesky_cuda",
+    "cholesky_fast",
+    "cholesky_lanes_cuda",
+    "cholesky_lanes_plain",
+    "cholesky_plain",
     "equilibrated_cholesky",
+    "equilibrated_factor",
     "sigma_deltas_banked",
     "sigma_deltas_cuda",
     "sigma_deltas_lanes",
@@ -55,15 +65,30 @@ def equilibrated_cholesky(cov: torch.Tensor):
     return lt, d
 
 
+def equilibrated_factor(cov: torch.Tensor) -> torch.Tensor:
+    """L = D·chol(D⁻¹·cov·D⁻¹) of (..., n, n) SPD ``cov`` (lower triangle
+    read), D = √max(diag cov, tiny): the factor K1, K8 and K12 compute. A
+    failed factorization gives NaN."""
+    lt, d = equilibrated_cholesky(cov)
+    return lt * d[..., :, None]
+
+
+def cholesky_plain(cov: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of an (N, n, n) SPD batch in PyTorch, as JAX's
+    ``cholesky_banked`` computes it: n ≤ ``UNROLL_LIMIT`` unrolled without
+    equilibration, larger n the equilibrated factor. Only the lower triangle
+    is read; a failed factorization gives NaN."""
+    if cov.shape[-1] <= UNROLL_LIMIT:
+        return cholesky_unrolled(cov)
+    return equilibrated_factor(cov)
+
+
 def sigma_deltas_plain(cov: torch.Tensor) -> torch.Tensor:
-    """(N, n, n) SPD batch → (N, 2n+1, n) ukfom sigma deltas, in PyTorch.
-    n ≤ 8 factors unrolled without equilibration, as the JAX fallback does."""
+    """(N, n, n) SPD batch → (N, 2n+1, n) ukfom sigma deltas, in PyTorch:
+    :func:`cholesky_plain` and the ± stack of its columns, as the JAX
+    fallback composes ``cholesky_banked``."""
     nb, n = cov.shape[0], cov.shape[-1]
-    if n <= UNROLL_LIMIT:
-        L = cholesky_unrolled(cov)
-    else:
-        lt, d = equilibrated_cholesky(cov)
-        L = lt * d[:, :, None]
+    L = cholesky_plain(cov)
     cols = L.transpose(-1, -2)  # row j = column j of L
     pm = torch.stack([cols, -cols], dim=-2).reshape(nb, 2 * n, n)
     return torch.cat([torch.zeros(nb, 1, n, dtype=cov.dtype, device=cov.device), pm], dim=-2)
@@ -144,8 +169,7 @@ def solve_spd_plain(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """(N, n, n) SPD (lower triangle read), (N, n, k) → (N, n, k) A⁻¹B in
     PyTorch, as K8 computes it: the equilibrated factor L = D·chol(D⁻¹AD⁻¹),
     then L·Y = B and Lᵀ·X = Y. A failed factorization gives NaN."""
-    lt, d = equilibrated_cholesky(spd)
-    L = lt * d[..., :, None]
+    L = equilibrated_factor(spd)
     y = torch.linalg.solve_triangular(L, rhs, upper=False)
     return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
 
@@ -204,3 +228,69 @@ def solve_spd_banked(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"solve_spd_banked: no path for device {spd.device}")
     return out[0] if single else out
 
+
+
+# ---------------------------------------------------------------------------
+# K12: the banked lower Cholesky
+# ---------------------------------------------------------------------------
+
+
+def cholesky_lanes_plain(a_t: torch.Tensor) -> torch.Tensor:
+    """K12's function in its own layout, in PyTorch: (n, n, N) matrices valid
+    at [c, r ≥ c] → (n, n, N) factors in (col, row, N) order."""
+    return cholesky_plain(_mirror_half(a_t).permute(2, 1, 0)).permute(2, 1, 0).contiguous()
+
+
+def cholesky_lanes_cuda(a_t: torch.Tensor) -> torch.Tensor:
+    """K12 on the card in its own layout: (n, n, N) SPD matrices in (col,
+    row, N) order, lower half read → (n, n, N) lower factors L =
+    D·chol(D⁻¹AD⁻¹) with explicit zeros above the diagonal, one thread per
+    matrix; a matrix whose factorization fails comes back all NaN."""
+    n, nb = a_t.shape[0], a_t.shape[-1]
+    if a_t.ndim != 3 or a_t.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
+        raise ValueError(f"cholesky: need (n, n, N) with n <= {MAX_N}, got {tuple(a_t.shape)}")
+    out_t = torch.empty_like(a_t)
+    cuda_lib.check_lanes("cholesky", a_t.device, a_t.dtype, a_t=a_t, out_t=out_t)
+    cuda_lib.KERNELS["cholesky"].launch(
+        a_t.dtype, a_t.data_ptr(), out_t.data_ptr(), n, nb, cuda_lib.stream_ptr(a_t.device)
+    )
+    return out_t
+
+
+def cholesky_cuda(cov: torch.Tensor) -> torch.Tensor:
+    """K12 on the card: (N, n, n) → (N, n, n); the layout transposes are
+    plain PyTorch copies around the kernel."""
+    if cov.ndim != 3 or cov.shape[1] != cov.shape[2]:
+        raise ValueError(f"cholesky_cuda: need (N, n, n), got {tuple(cov.shape)}")
+    return cholesky_lanes_cuda(cov.permute(2, 1, 0).contiguous()).permute(2, 1, 0)
+
+
+def cholesky_banked(cov: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of SPD ``cov`` (N, n, n) or (n, n), lower triangle
+    read: n ≤ ``UNROLL_LIMIT`` unrolled on any device; larger n diagonally
+    equilibrated (L = D·chol(D⁻¹PD⁻¹), which keeps the 53-DOF covariance's
+    1e-11 … 10 variances within float32) by K12 for a CUDA tensor (float32
+    or float64, any bank, n ≤ ``MAX_N``) and by :func:`cholesky_plain` for a
+    CPU tensor. A failed factorization gives NaN."""
+    single = cov.ndim == 2
+    if single:
+        cov = cov[None]
+    if cov.shape[-1] <= UNROLL_LIMIT:
+        out = cholesky_unrolled(cov)
+    elif cov.device.type == "cuda":
+        out = cholesky_cuda(cov)
+    elif cov.device.type == "cpu":
+        out = cholesky_plain(cov)
+    else:
+        raise ValueError(f"cholesky_banked: no path for device {cov.device}")
+    return out[0] if single else out
+
+
+def cholesky_fast(cov: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of one (n, n) or of any (..., n, n) stack: the leading
+    axes flatten into one bank for :func:`cholesky_banked`, which is what
+    JAX's vmap rule of ``cholesky_fast`` does (the port has no vmap)."""
+    n = cov.shape[-1]
+    if cov.ndim == 2:
+        return cholesky_banked(cov)
+    return cholesky_banked(cov.reshape(-1, n, n)).reshape(cov.shape)

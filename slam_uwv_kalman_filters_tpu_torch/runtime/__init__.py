@@ -1,9 +1,14 @@
-"""Native host-side runtime of the online estimator (ctypes over the
-repository's ``runtime/libuwv_runtime.so``) — the port's own copy of what
-the online loop uses from ``slam_uwv_kalman_filters_tpu/runtime/__init__.py``:
+"""Native host-side runtime (ctypes over the repository's
+``runtime/libuwv_runtime.so``) — the port's own copy of the bindings of
+``slam_uwv_kalman_filters_tpu/runtime/__init__.py``:
 
+* :func:`pack_schedule` — the irregular-event-stream → dense-tick-schedule
+  packer feeding ``models/pose_driver.py`` (latest wins per cell, µs ticks);
 * :func:`forward_fill` — input-sensor semantics (gyro and effort caches hold
   the last value, ``src/PoseUKF.cpp:492-496``);
+* :class:`NativeDelayedStates` — ``pose_estimation::DelayedStates<T>`` for
+  host-side out-of-sequence bookkeeping (the buffer that lives on the card
+  is ``utils/delayed_states.py``);
 * :class:`StreamPacker` — the incremental event-stream → tick-window packer
   of online ingest.
 
@@ -24,7 +29,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["build", "native_available", "forward_fill", "StreamPacker"]
+__all__ = ["build", "native_available", "pack_schedule", "forward_fill", "NativeDelayedStates", "StreamPacker"]
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 _RUNTIME_DIR = _REPO_ROOT / "runtime"
@@ -70,8 +75,16 @@ def _load() -> Optional[ctypes.CDLL]:
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.uwv_pack_schedule.restype = i64
+    lib.uwv_pack_schedule.argtypes = [i64p, i32p, f64p, i64, i32, i32p, i32, i64, i64, i64, f64p, u8p]
     lib.uwv_forward_fill.restype = None
     lib.uwv_forward_fill.argtypes = [f64p, u8p, i64, i32, f64p]
+    lib.uwv_delayed_states_new.restype = ctypes.c_void_p
+    lib.uwv_delayed_states_new.argtypes = [i64, i32, ctypes.c_double]
+    lib.uwv_delayed_states_free.argtypes = [ctypes.c_void_p]
+    lib.uwv_delayed_states_push.argtypes = [ctypes.c_void_p, i64, f64p, f64p]
+    lib.uwv_delayed_states_closest.restype = i32
+    lib.uwv_delayed_states_closest.argtypes = [ctypes.c_void_p, i64, f64p, f64p]
     lib.uwv_stream_new.restype = ctypes.c_void_p
     lib.uwv_stream_new.argtypes = [i32, i32, i32p, i64, i64, i64]
     lib.uwv_stream_free.argtypes = [ctypes.c_void_p]
@@ -89,6 +102,70 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def pack_schedule(
+    timestamps_us: np.ndarray,
+    sensor_ids: np.ndarray,
+    payloads: np.ndarray,
+    sensor_dims: np.ndarray,
+    t0_us: int,
+    dt_us: int,
+    n_ticks: int,
+):
+    """Pack an irregular event stream into dense per-sensor tick arrays.
+
+    Returns (values [n_sensors, n_ticks, stride], valid [n_sensors, n_ticks],
+    dropped count). The latest event of a (sensor, tick) cell wins; events
+    before ``t0_us``, past the last tick or of an unknown sensor are
+    dropped."""
+    timestamps_us = np.ascontiguousarray(timestamps_us, np.int64)
+    sensor_ids = np.ascontiguousarray(sensor_ids, np.int32)
+    payloads = np.ascontiguousarray(payloads, np.float64)
+    sensor_dims = np.ascontiguousarray(sensor_dims, np.int32)
+    n_sensors = len(sensor_dims)
+    if n_sensors <= 0:
+        raise ValueError("sensor_dims is empty")
+    if dt_us <= 0:
+        raise ValueError(f"dt_us must be positive, got {dt_us} (rate > 1e6 Hz?)")
+    if n_ticks < 0:
+        raise ValueError(f"n_ticks must be non-negative, got {n_ticks}")
+    stride = payloads.shape[1] if payloads.ndim == 2 else 1
+    payloads = payloads.reshape(len(timestamps_us), stride)
+
+    lib = _load()
+    values = np.zeros((n_sensors, n_ticks, stride), np.float64)
+    valid = np.zeros((n_sensors, n_ticks), np.uint8)
+    if lib is not None:
+        dropped = lib.uwv_pack_schedule(
+            timestamps_us, sensor_ids, payloads, len(timestamps_us),
+            stride, sensor_dims, n_sensors, t0_us, dt_us, n_ticks,
+            values.reshape(-1), valid.reshape(-1),
+        )
+        if dropped < 0:
+            raise RuntimeError(f"native packer rejected the arguments (code {dropped})")
+        return values, valid.astype(bool), int(dropped)
+
+    # NumPy fallback — the same latest-wins semantics
+    dropped = 0
+    winner = np.full((n_sensors, n_ticks), np.iinfo(np.int64).min, np.int64)
+    for e in range(len(timestamps_us)):
+        sid = int(sensor_ids[e])
+        if not (0 <= sid < n_sensors):
+            dropped += 1
+            continue
+        rel = int(timestamps_us[e]) - t0_us
+        if rel < 0 or rel // dt_us >= n_ticks:
+            dropped += 1
+            continue
+        tick = rel // dt_us
+        if timestamps_us[e] < winner[sid, tick]:
+            continue
+        winner[sid, tick] = timestamps_us[e]
+        d = int(sensor_dims[sid])
+        values[sid, tick, :d] = payloads[e, :d]
+        valid[sid, tick] = 1
+    return values, valid.astype(bool), dropped
 
 
 def forward_fill(values: np.ndarray, valid: np.ndarray, initial: np.ndarray):
@@ -116,6 +193,64 @@ def forward_fill(values: np.ndarray, valid: np.ndarray, initial: np.ndarray):
             values[t] = last
             valid_u8[t] = 1
     return values, valid_u8.astype(bool)
+
+
+class NativeDelayedStates:
+    """ctypes handle over the C++ DelayedStates ring buffer (float64 values
+    and covariances, int64 µs timestamps); the NumPy fallback keeps the same
+    semantics in a list."""
+
+    def __init__(self, capacity: int, dim: int, maximum_delay_s: float):
+        if capacity <= 0 or dim <= 0:
+            raise ValueError(f"capacity and dim must be positive, got {capacity}, {dim}")
+        self._dim = dim
+        self._lib = _load()
+        if self._lib is not None:
+            self._h = self._lib.uwv_delayed_states_new(capacity, dim, maximum_delay_s)
+            if not self._h:
+                raise ValueError("native DelayedStates rejected the arguments")
+        else:
+            self._h = None
+            self._cap = capacity
+            self._max_us = int(abs(maximum_delay_s) * 1e6)
+            self._entries: list = []
+
+    @property
+    def native(self) -> bool:
+        return self._h is not None
+
+    def push(self, ts_us: int, value, cov) -> None:
+        value = np.ascontiguousarray(value, np.float64)
+        cov = np.ascontiguousarray(cov, np.float64)
+        if value.size != self._dim or cov.size != self._dim * self._dim:
+            # the native side copies dim and dim² doubles whatever it is given
+            raise ValueError(
+                f"push expects value ({self._dim},) and cov ({self._dim},{self._dim}); "
+                f"got {value.shape} and {cov.shape}"
+            )
+        if self._h is not None:
+            self._lib.uwv_delayed_states_push(self._h, int(ts_us), value, cov)
+        else:
+            self._entries.append((int(ts_us), value.copy(), cov.copy()))
+            if len(self._entries) > self._cap:
+                self._entries.pop(0)
+
+    def closest(self, ts_us: int):
+        """→ (value, cov, found)"""
+        if self._h is not None:
+            value = np.zeros(self._dim, np.float64)
+            cov = np.zeros((self._dim, self._dim), np.float64)
+            ok = self._lib.uwv_delayed_states_closest(self._h, int(ts_us), value, cov.reshape(-1))
+            return value, cov, bool(ok)
+        if not self._entries:
+            return np.zeros(self._dim), np.zeros((self._dim, self._dim)), False
+        best = min(self._entries, key=lambda e: abs(e[0] - ts_us))
+        found = abs(best[0] - ts_us) <= self._max_us
+        return best[1], best[2], found
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None and self._lib is not None:
+            self._lib.uwv_delayed_states_free(self._h)
 
 
 class StreamPacker:

@@ -5,8 +5,9 @@
 ``PoseUKFParams``, ``PoseInputs``, ``PoseStepConstants`` with its
 ``MarkerSetup``, ``FleetMissionSpec``, ``VelocityUKFState``,
 ``VelocityUKFParams``, ``BottomUKFState``, ``BottomUKFParams``,
-``IndirectPoseUKFState``, ``IndirectPoseUKFParams``, ``IndirectLanesState`` or
-a ``SmoothedTrajectory`` after ``jax.tree.map(np.asarray, …)``)
+``IndirectPoseUKFState``, ``IndirectPoseUKFParams``, ``IndirectLanesState``,
+a ``SmoothedTrajectory``, a ``PoseStateWithDelayedPosition`` or a
+delayed-state buffer ``DelayedStates`` after ``jax.tree.map(np.asarray, …)``)
 into the port's NamedTuple of the same name, field by field; :func:`to_numpy`
 turns a port tree into numpy leaves. ``None`` leaves (absent sensor streams)
 stay ``None``, strings (a step update's model name) stay strings, and a
@@ -33,7 +34,7 @@ def _port_types() -> dict:
     from ..models import (bottom_fused, bottom_ukf, indirect_fused, indirect_pose_ukf, monte_carlo, pose_driver,
                           pose_fused, pose_smoother, pose_ukf, velocity_fused, velocity_ukf)
     from ..ops import dynamics, geodesy, ukf
-    from . import config
+    from . import config, delayed_states
 
     types = (
         pose_ukf.PoseState, pose_ukf.PoseStateWithMarker, pose_ukf.PoseUKFParams, pose_ukf.PoseUKFState,
@@ -47,6 +48,7 @@ def _port_types() -> dict:
         indirect_pose_ukf.PoseErrorState, indirect_pose_ukf.PoseErrorStateWithMarker,
         indirect_pose_ukf.IndirectPoseUKFParams, indirect_pose_ukf.IndirectPoseUKFState,
         indirect_fused.IndirectLanesState, config.CameraConfiguration,
+        pose_ukf.PoseStateWithDelayedPosition, delayed_states.DelayedStates,
     )
     return {t.__name__: t for t in types}
 

@@ -965,3 +965,80 @@ def test_pose_markers_bank_update_launches_and_counts(device, monkeypatch):
     assert _cov_err(pf.to_lanes(out).cov_t, pf.to_lanes(ref).cov_t, pf.to_lanes(bs).cov_t) <= LIMIT[torch.float32]
     assert _rel(pf._pack_storage(out.mu), pf._pack_storage(ref.mu)) <= LIMIT[torch.float32]
     assert _rel(info.mahalanobis2, ref_info.mahalanobis2) <= LIMIT[torch.float32]
+
+
+# ---------------------------------------------------------------------------
+# K12 (the banked Cholesky) and K13 (the FMA roofline probe)
+# ---------------------------------------------------------------------------
+
+
+def chol_operands(device, dtype, n, nb=NB, seed=33):
+    """(n, n, nb) SPD matrices in the lanes layout with the 53-DOF
+    covariance's spread (variances 1e-11 … 10, random correlations), NaN in
+    the unread upper half."""
+    rng = np.random.default_rng(seed + n)
+    g = rng.normal(size=(nb, n, n))
+    base = g @ np.swapaxes(g, 1, 2) / n + np.eye(n)
+    s = np.sqrt(np.diagonal(base, axis1=1, axis2=2))
+    d = np.sqrt(10.0 ** rng.uniform(-11.0, 1.0, n))
+    spd = base / (s[:, :, None] * s[:, None, :]) * d[None, :, None] * d[None, None, :]
+    a_t = torch.as_tensor(np.ascontiguousarray(np.transpose(spd, (2, 1, 0))), device=device).to(dtype)
+    lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=device), -1)[..., None]
+    return torch.where(lower, float("nan"), a_t).contiguous()
+
+
+def _chol_err(out_t, ref_t, a_t):
+    """Max |ΔL(r, c)| / √A_rr: row r of the factor scales with √A_rr."""
+    d = torch.sqrt(torch.diagonal(a_t, dim1=0, dim2=1).T)  # (n, nb), indexed [r, b]
+    return ((out_t - ref_t).abs() / d[None, :, :]).max().item()
+
+
+@pytest.mark.parametrize("n", [9, 53, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cholesky_kernel_matches_plain(device, dtype, n):
+    a_t = chol_operands(device, dtype, n)
+    ko, po = kernels.cholesky_lanes_cuda(a_t), kernels.cholesky_lanes_plain(a_t)
+    torch.cuda.synchronize()
+    upper = torch.tril(torch.ones(n, n, dtype=torch.bool, device=device), -1)  # [c, r < c]
+    assert bool((ko[upper] == 0).all()) and bool(torch.isfinite(ko).all())
+    assert _chol_err(ko, po, a_t) <= LIMIT[dtype]
+
+
+def test_cholesky_banked_routes_through_k12_and_refuses_what_it_cannot_factor(device):
+    k12 = puf.cuda_lib.KERNELS["cholesky"]
+    a_t = chol_operands(device, torch.float64, 53)
+    cov = torch.where(torch.isnan(a_t), a_t.transpose(0, 1), a_t).permute(2, 1, 0).contiguous()
+    cov[4, 10, 10] = -1.0  # not SPD: both versions give NaN for that matrix
+    before = k12.launches
+    out = kernels.cholesky_banked(cov)
+    one = kernels.cholesky_fast(cov[0])
+    torch.cuda.synchronize()
+    assert k12.launches == before + 2
+    ref = kernels.cholesky_plain(cov)
+    assert bool(torch.isnan(out[4]).all()) and bool(torch.isnan(ref[4]).all())
+    keep = torch.arange(NB, device=device) != 4
+    assert _chol_err(out.permute(2, 1, 0)[..., keep], ref.permute(2, 1, 0)[..., keep], a_t[..., keep]) <= 1e-9
+    assert torch.equal(one, out[0])
+    assert torch.equal(kernels.cholesky_banked(cov[:, :6, :6]), kernels.cholesky_plain(cov[:, :6, :6]))  # unrolled
+    assert k12.launches == before + 2
+    with pytest.raises(ValueError, match="n <= 64"):
+        kernels.cholesky_banked(torch.eye(65, dtype=torch.float64, device=device).expand(3, 65, 65))
+
+
+def test_fma_probe_kernel_matches_plain_and_measures(device):
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    a = 0.75 + 0.5 * torch.rand(1 << 20, generator=gen, device=device)
+    b = 0.9 + 0.1 * torch.rand(1 << 20, generator=gen, device=device)
+    k13 = puf.cuda_lib.KERNELS["fma_probe"]
+    before = k13.launches
+    ko, po = roofline.fma_probe_cuda(a, b), roofline.fma_probe_plain(a, b)
+    torch.cuda.synchronize()
+    assert k13.launches == before + 1
+    assert ((ko - po).abs().max() / po.abs().max()).item() <= 1e-5
+    assert roofline.measure_fma(launches=4, elements=1 << 22) > 1e12
+    assert k13.launches == before + 1 + 5  # one warm launch and four timed
+    assert roofline.measure_hbm(iters=4, elements=1 << 26) > 1e11
+    with pytest.raises(TypeError):
+        roofline.fma_probe_cuda(a.double(), b.double())

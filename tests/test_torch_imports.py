@@ -21,7 +21,8 @@ def test_port_imports_without_jax():
         "linalg_small, manifolds, ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.parallel import bank\n"
         "from slam_uwv_kalman_filters_tpu_torch import runtime\n"
-        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, device, memo, validation\n"
+        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, delayed_states, device, memo, validation\n"
+        "from slam_uwv_kalman_filters_tpu_torch.tools import roofline\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'slam_uwv_kalman_filters_tpu.')) or m in ('slam_uwv_kalman_filters_tpu', 'icra18_mission'))\n"
@@ -47,6 +48,7 @@ def test_cpu_tensor_takes_plain_route_without_counting():
     cov = a @ a.transpose(1, 2) + 12 * torch.eye(12, dtype=torch.float64)
     out = kernels.sigma_deltas_banked(cov)
     torch.testing.assert_close(out, kernels.sigma_deltas_plain(cov), rtol=0, atol=0)
+    torch.testing.assert_close(kernels.cholesky_banked(cov), kernels.cholesky_plain(cov), rtol=0, atol=0)
     rhs = torch.randn(5, 12, 3, dtype=torch.float64)
     torch.testing.assert_close(kernels.solve_spd_banked(cov, rhs), kernels.solve_spd_plain(cov, rhs), rtol=0, atol=0)
     assert all(k.launches == 0 for k in cuda_lib.KERNELS.values())
