@@ -6,7 +6,8 @@ csrc`` and then, in order:
 
 1. checks each kernel against its plain PyTorch version on the card, in
    float32 and float64, at bank 300 (more than two 128-thread blocks, with a
-   ragged edge): K1 sigma deltas at n = 53, K2 the fused predict on perturbed
+   ragged edge): K1 sigma deltas at n = 53 (lanes and bank-first layouts), K2
+   the fused predict on perturbed
    mission states, K3 the in-kernel update for all seven models in both aux
    forms (valid covariance half only); then holds the float32 kernels' means
    (K2's predicted mean, K3's innovation) to the float32 plain version's
@@ -65,7 +66,8 @@ csrc`` and then, in order:
 15. (after the checks of 10) checks K7, the BottomUKF step, predict alone and
    predict + [range, normal] with a χ²-rejected instance, and K8, the banked
    SPD solve, on random and ill-conditioned 53x53 systems with 53
-   right-hand sides, at bank 300, float32 and float64;
+   right-hand sides, at bank 300, float32 and float64, in the lanes layout
+   and bank-first with the right-hand side a transposed view;
 16. runs the BottomUKF bank (bench.py's second small filter: predict + one
    range beam in one K7 launch) at bank 65 536, float32, 30 timed steps, and
    checks and times K7 on its operands;
@@ -74,7 +76,8 @@ csrc`` and then, in order:
    the card, backward (K1, K8) each tick; holds the smoothed covariance
    trace to the filtered one and prints both passes' times and the filtered
    and smoothed ATE; then checks and times K1 and K8 on the backward
-   pass's operands, K8 beside ``cholesky_ex`` + ``cholesky_solve``;
+   pass's (bank-first) operands, K1 beside ``cholesky_ex`` + the ± stack, K8
+   beside ``cholesky_ex`` + ``cholesky_solve``;
 18. (after the checks of 15) checks K9, the IndirectPoseUKF predict, on
    perturbed error states, and K10, its marker update with the 12-DOF
    augmentation, with 1 and 4 corners, shared and per-instance pixels and
@@ -123,7 +126,14 @@ csrc`` and then, in order:
    (prediction with the delayed buffer, acceleration every tick, DVL 5 Hz,
    pressure 2 Hz, velocity-only body efforts 10 Hz, a fix 1 s late at
    0.5 Hz), per-tick p50 and p99, and holds its final pose to the same ticks
-   through the class on the CPU in float64.
+   through the class on the CPU in float64; then checks and times K1 at
+   bank 1 on the operands the class gave it, and times K1 alone at bank 1
+   for n = 1 … 64 and at bank 256 for n = 53.
+
+A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
+calls held behind a spin kernel, so the host's time to enqueue each is
+hidden); the ``ptxas`` lines of K1's and K8's warp-per-matrix kernels
+(registers, stack frame, spills) are printed on their own.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
@@ -342,12 +352,14 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
          recording(puf._pose_update_lanes, lambda a: f"pose_update_tail[{a[1].shape[1]}]")),
         (kernels, "sigma_deltas_lanes_cuda",
          recording(kernels.sigma_deltas_lanes_cuda, lambda a: "sigma_deltas")),
+        (kernels, "sigma_deltas_cuda", recording(kernels.sigma_deltas_cuda, lambda a: "sigma_deltas[bank-first]")),
         (puf, "_pose_step_lanes", recording(puf._pose_step_lanes, lambda a: f"pose_step[{'+'.join(a[0])}]")),
         (vf, "_velocity_step_lanes",
          recording(vf._velocity_step_lanes, lambda a: f"velocity_step[{'+'.join(a[0]) or 'predict'}]")),
         (bf, "_bottom_step_lanes",
          recording(bf._bottom_step_lanes, lambda a: f"bottom_step[{'+'.join(('predict',) * a[1] + a[0])}]")),
         (kernels, "solve_spd_lanes_cuda", recording(kernels.solve_spd_lanes_cuda, lambda a: "solve_spd")),
+        (kernels, "solve_spd_cuda", recording(kernels.solve_spd_cuda, lambda a: "solve_spd[bank-first]")),
         (ifu, "_indirect_predict_lanes", recording(ifu._indirect_predict_lanes, lambda a: "indirect_predict")),
         (ifu, "_indirect_markers_lanes",
          recording(ifu._indirect_markers_lanes, lambda a: f"indirect_markers[k={a[4].shape[0]}]")),
@@ -389,7 +401,8 @@ def _rel(out, ref):
 
 
 def _pair(name):
-    """(kernel wrapper, plain version) of kernel ``name``."""
+    """(kernel wrapper, plain version) of kernel ``name``; K1's and K8's
+    bank-first wrappers under ``<name>[bank-first]``."""
     from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
     from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
@@ -400,6 +413,8 @@ def _pair(name):
     from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
     return {
+        "sigma_deltas[bank-first]": (kernels.sigma_deltas_cuda, kernels.sigma_deltas_plain),
+        "solve_spd[bank-first]": (kernels.solve_spd_cuda, kernels.solve_spd_plain),
         "sigma_deltas": (kernels.sigma_deltas_lanes_cuda, kernels.sigma_deltas_lanes_plain),
         "pose_step": (puf.pose_step_lanes_cuda, puf.pose_step_lanes_plain),
         "velocity_step": (vf.velocity_step_lanes_cuda, vf.velocity_step_lanes_plain),
@@ -417,13 +432,26 @@ def _pair(name):
     }[name]
 
 
+def _lanes_view(key: str, args: tuple) -> tuple:
+    """K1's and K8's bank-first operands (``<name>[bank-first]``) as views
+    in the lanes layout the checks, bounds and library calls read; other
+    operands as they are."""
+    if key == "sigma_deltas[bank-first]":
+        return (args[0].permute(2, 1, 0),)
+    if key == "solve_spd[bank-first]":
+        return args[0].permute(2, 1, 0), args[1].permute(1, 2, 0)
+    return args
+
+
 def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> None:
-    """Run kernel ``name`` and its plain version on ``args``, log the errors
-    beside the limit and raise past it; keep the float32 max abs error per
-    kernel in ``stats``."""
+    """Run kernel ``name`` (K1 and K8 also ``<name>[bank-first]``) and its
+    plain version on ``args``, log the errors beside the limit and raise past
+    it; keep the float32 max abs error per kernel in ``stats``."""
     kern, plain = _pair(name)
     ko, po = kern(*args), plain(*args)
     torch.cuda.synchronize()
+    if name.endswith("[bank-first]"):  # outputs (N, 2n+1, n) or (N, n, k) as lanes views
+        name, args, ko, po = name.split("[")[0], _lanes_view(name, args), ko.permute(1, 2, 0), po.permute(1, 2, 0)
     if name == "sigma_deltas":
         dtype = ko.dtype
         scale = po.abs().amax(dim=(0, 1), keepdim=True)
@@ -541,6 +569,7 @@ def phase_checks(device):
         bs, params, _ = mission_setup(nb, dtype, device, gen, spread=1.0)
         ls = pf.to_lanes(bs)
         compare("sigma_deltas", "sigma_deltas", (ls.cov_t,))  # K1 at n = 53
+        compare("sigma_deltas[bank-first]", "sigma_deltas[bank-first]", (bs.cov,))
         ops = pf._predict_operands_shared(params, DT, dtype)
         compare("pose_predict", "pose_predict", (ls.cov_t, ls.mu_t, ls.rr_t, *ops))
         # K3: seven models × two aux forms, on the predicted states
@@ -753,17 +782,31 @@ def phase_generic(ls, like, params, meas, captured: dict, counts: dict):
     return launches
 
 
-def _time(fn, reps: int) -> float:
-    """Milliseconds per call from CUDA events, after one warm call."""
+def _time(fn, reps: int, hold_cycles: int = 0) -> float:
+    """Milliseconds per call from CUDA events, after one warm call. With
+    ``hold_cycles``, a spin kernel of that many cycles holds the stream while
+    the host enqueues the calls, so that they run back to back."""
     fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if hold_cycles:
+        torch.cuda._sleep(hold_cycles)
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _device_ms(fn, reps: int = 20):
+    """Milliseconds per call on the card alone, without the host's time to
+    enqueue each call (which :func:`_time` includes where it is the longer):
+    ``reps`` calls held behind ~0.1 ms of spin per call (at ~2 GHz), the
+    median of three rounds. None where PyTorch has no spin kernel."""
+    if not hasattr(torch.cuda, "_sleep"):
+        return None
+    return sorted(_time(fn, reps, hold_cycles=200_000 * reps) for _ in range(3))[1]
 
 
 # operations of each in-kernel measurement model per sigma point (estimate)
@@ -902,6 +945,10 @@ def _bound(name: str, args: tuple):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the figures phase_mission_shapes returns for each kernel, in order
+TIME_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
+
+
 def _median_ms(label: str, fn, reps: int, rounds: int = 5) -> float:
     """Median of ``rounds`` timings of ``reps`` calls each, after three warm
     calls; logs the spread beside it."""
@@ -966,25 +1013,30 @@ def _library_ms(name: str, args: tuple):
 def phase_mission_shapes(path: str, captured: dict, counts: dict, mission_counts: dict, mission_ms: float,
                          stats: dict):
     """Each kernel against its plain version on the operands that main path
-    ``path`` gave it (K3 once per model, K4 once per m), at LIMITS; then both
-    timed in turns plain, kernel, kernel, plain, and the library call where
-    there is one. A kernel's time in the table is the launch-weighted mean
-    over its keys; ``mission_counts`` are the launches of each key in the
-    path's timed run of ``mission_ms``. Returns {kernel: (ms, plain_ms,
-    bound_ms, bound_by, library_ms)}."""
+    ``path`` gave it (K3 once per model, K4 once per m, K1 and K8 per
+    layout), at LIMITS; then both timed in turns plain, kernel, kernel,
+    plain, and the library call where there is one; a kernel under 1 ms also
+    by :func:`_device_ms`. A kernel's time in the table is the
+    launch-weighted mean over its keys; ``mission_counts`` are the launches
+    of each key in the path's timed run of ``mission_ms``. Returns {kernel:
+    (ms, plain_ms, bound_ms, bound_by, library_ms, device_ms)}."""
     per_key = {}
     for key, args in captured.items():
         name = key.split("[")[0]
-        nb = next(a.shape[-1] for a in args if isinstance(a, torch.Tensor) and a.ndim in (1, 3))
-        compare(name, f"{key} main path bank={nb}", args, stats)
-        kern, plain = _pair(name)
+        lanes = _lanes_view(key, args)
+        nb = next(a.shape[-1] for a in lanes if isinstance(a, torch.Tensor) and a.ndim in (1, 3))
+        pair = key if key.endswith("[bank-first]") else name  # K3's and K4's keys name one kernel
+        compare(pair, f"{key} main path bank={nb}", args, stats)
+        kern, plain = _pair(pair)
         p1, k1, k2, p2 = _time(lambda: plain(*args), 2), _time(lambda: kern(*args), 3), \
             _time(lambda: kern(*args), 3), _time(lambda: plain(*args), 2)
-        bound_ms, bound_by = _bound(name, args)
-        lib = _library_ms(name, args)
-        per_key[key] = ((k1 + k2) / 2, (p1 + p2) / 2, bound_ms, bound_by, lib)
-        log(f"time {key}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({bound_by})" + ("" if lib is None else f", library {lib:.3f} ms")
+        device = _device_ms(lambda: kern(*args)) if k1 < 1.0 else None
+        bound_ms, bound_by = _bound(name, lanes)
+        lib = _library_ms(name, lanes)
+        per_key[key] = ((k1 + k2) / 2, (p1 + p2) / 2, bound_ms, bound_by, lib, device)
+        log(f"time {key}: kernel {k1:.3f}/{k2:.3f} ms" + ("" if device is None else f" (device {device:.4f} ms)")
+            + f", plain {p1:.3f}/{p2:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+            + ("" if lib is None else f", library {lib:.3f} ms")
             + f" (f32, bank {nb}, {counts[key]} launches in the recorded pass)")
     times = {}
     for name in {k.split("[")[0] for k in per_key}:
@@ -992,7 +1044,7 @@ def phase_mission_shapes(path: str, captured: dict, counts: dict, mission_counts
         w = sum(counts[k] for k in keys)
         mean = lambda i: sum(counts[k] * per_key[k][i] for k in keys) / w
         by = max(keys, key=lambda k: counts[k] * per_key[k][2])
-        times[name] = (mean(0), mean(1), mean(2), per_key[by][3], per_key[keys[0]][4])
+        times[name] = (mean(0), mean(1), mean(2), per_key[by][3], per_key[keys[0]][4], per_key[keys[0]][5])
     kernel_ms = sum(mission_counts[k] * per_key[k][0] for k in mission_counts if k in per_key)
     log(f"kernels of the {path} {kernel_ms:.1f} ms of {mission_ms:.1f} ms measured "
         f"({100 * (1 - kernel_ms / mission_ms):.1f}% outside the recorded kernels)")
@@ -1636,8 +1688,12 @@ def phase_checks_bottom_solve(device):
         if not (acc[3] == 0.0 and int(acc.sum().item()) == nb - 1):
             raise AssertionError("K7's χ² gate did not reject exactly instance 3")
         for ill in (False, True):
-            compare("solve_spd", f"solve_spd[{'ill-conditioned' if ill else 'random'} 53x53, k=53]",
-                    solve_check_operands(nb, dtype, device, gen, ill))
+            a_t, b_t = solve_check_operands(nb, dtype, device, gen, ill)
+            label = f"{'ill-conditioned' if ill else 'random'} 53x53, k=53"
+            compare("solve_spd", f"solve_spd[{label}]", (a_t, b_t))
+            # bank-first, the right-hand side a transposed view as the smoother hands it
+            rhs = b_t.permute(2, 1, 0).contiguous().transpose(1, 2)
+            compare("solve_spd[bank-first]", f"solve_spd[{label}, bank-first, Bᵀ view]", (a_t.permute(2, 1, 0), rhs))
 
 
 def bottom_setup(nb: int, dtype, device):
@@ -2135,7 +2191,7 @@ def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    with capture_operands(captured, counts, keep=lambda key: key in ("solve_spd", "sigma_deltas")), \
+    with capture_operands(captured, counts, keep=lambda key: key.split("[")[0] in ("solve_spd", "sigma_deltas")), \
             patched((sm, "smooth_backward", backward)):
         out = sm.run_trajectory_smoothed(bs, params, inputs)
     torch.cuda.synchronize()
@@ -2401,11 +2457,11 @@ def pose_class_run(device, dtype, ticks: int):
     return f.mu.position.double().cpu(), f.mu.orientation.double().cpu(), tick_ms, found
 
 
-def phase_pose_class(device, ticks: int):
+def phase_pose_class(device, ticks: int, captured: dict, counts: dict):
     """The class path: :func:`pose_class_run` on the card in float32 with the
-    counters zeroed just before and read just after, per-tick p50 and p99,
-    and its final pose against the same ticks through the class on the CPU
-    in float64."""
+    counters zeroed just before and read just after and K1's operands
+    recorded, per-tick p50 and p99, and its final pose against the same ticks
+    through the class on the CPU in float64."""
     import numpy as np
 
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
@@ -2414,7 +2470,8 @@ def phase_pose_class(device, ticks: int):
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
-    pos32, q32, tick_ms, found = pose_class_run(device, torch.float32, ticks)
+    with capture_operands(captured, counts, keep=lambda key: key.startswith("sigma_deltas")):
+        pos32, q32, tick_ms, found = pose_class_run(device, torch.float32, ticks)
     launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
     card_s = time.perf_counter() - t0
     pos64, q64, _, found64 = pose_class_run("cpu", torch.float64, ticks)
@@ -2435,8 +2492,25 @@ def phase_pose_class(device, ticks: int):
         raise AssertionError(f"the class's delayed fixes: found {found} on the card, {found64} on the CPU")
     if not (dpos <= limits["position_m"] and dang <= limits["orientation_rad"]):
         raise AssertionError("the float32 class on the card left the float64 class on the CPU")
-    return launches, {"ticks": ticks, "tick_ms_p50": p50, "tick_ms_p99": p99, "position_diff_m": dpos,
-                      "orientation_diff_rad": dang}
+    return launches, {"ticks": ticks, "tick_ms_p50": p50, "tick_ms_p99": p99, "card_ms": 1e3 * card_s,
+                      "position_diff_m": dpos, "orientation_diff_rad": dang}
+
+
+def phase_k1_latency(device):
+    """K1 on the card alone (:func:`_device_ms`), float32, bank-first, at
+    bank 1 for n = 1 … 64 and at bank 256 for n = 53: how one warp's time
+    grows with n (~n²/2 column steps, n pivots, ~n² loads and (2n+1)·n
+    stores) shows what holds a small bank back. Returns {"bank_<N>_n_<n>": ms}."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=device).manual_seed(61)
+    out = {}
+    for nb, n in ((1, 1), (1, 8), (1, 16), (1, 32), (1, 53), (1, 64), (256, 53)):
+        cov = cholesky_check_operands(n, nb, torch.float32, device, gen).permute(2, 1, 0).contiguous()
+        out[f"bank_{nb}_n_{n}"] = _device_ms(lambda: kernels.sigma_deltas_cuda(cov))
+    log("K1 on the card alone, float32, bank-first: "
+        + " ".join(f"{k}={'not measured' if v is None else f'{v:.4f} ms'}" for k, v in out.items()))
+    return out
 
 
 def main() -> int:
@@ -2466,9 +2540,14 @@ def main() -> int:
     t0 = time.perf_counter()
     info = cuda_lib.build_info()
     log(f"build: {info['build_seconds']:.1f} s nvcc compile+link ({time.perf_counter() - t0:.1f} s to loaded library)")
+    entry = ""
     for line in info["ptxas"].splitlines():
         if "registers" in line or "Compiling entry" in line or "stack frame" in line:
             log("ptxas: " + line.strip())
+        entry = line.split("'")[1] if "Compiling entry" in line and "'" in line else entry
+        if ("sigma_deltas_kernel" in entry or "solve_spd_kernel" in entry) and (
+                "registers" in line or "stack frame" in line):
+            log(f"ptxas warp-per-matrix kernel {entry}: {line.strip()}")
 
     phase_checks(device)
     phase_mean_accuracy(device)
@@ -2499,9 +2578,9 @@ def main() -> int:
     # K1 at n = 55 and K3's XY model on these operands; the table keeps the
     # mission's times of K1 and K3
     delayed["kernel_times_ms"] = {
-        name: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), v))
+        name: dict(zip(TIME_FIELDS, v))
         for name, v in phase_mission_shapes(
-            "delayed fixes", captured, counts, {"pose_update_model[xy_position]": 1, "sigma_deltas": 1},
+            "delayed fixes", captured, counts, {"pose_update_model[xy_position]": 1, "sigma_deltas[bank-first]": 1},
             delayed["buffered"]["ms"] + delayed["augmented"]["ms"], stats).items()}
     log(f"phase delayed fixes: {time.perf_counter() - t0:.1f} s")
     del captured
@@ -2563,10 +2642,11 @@ def main() -> int:
     # K1 and K8 on the backward pass's operands; the table keeps K1's time on
     # the mission's operands above and K8's from here
     backward = phase_mission_shapes("survey smoother's backward pass", captured, counts,
-                                    {k: smoother_launches[k] for k in captured}, 1e3 * smoother["backward_s"], stats)
+                                    {k: smoother_launches[k.split("[")[0]] for k in captured},
+                                    1e3 * smoother["backward_s"], stats)
     times["solve_spd"] = backward["solve_spd"]
-    smoother["sigma_deltas_times_ms"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
-                                                 backward["sigma_deltas"]))
+    for name in ("sigma_deltas", "solve_spd"):
+        smoother[f"{name}_times_ms"] = dict(zip(TIME_FIELDS, backward[name]))
     del captured
     torch.cuda.empty_cache()
     fleet = phase_fleet_ate(device, args.fleet_bank, args.fleet_minutes)
@@ -2575,7 +2655,15 @@ def main() -> int:
     marker_trajectory = phase_marker_trajectory(device, args.ticks)
     log(f"phase marker trajectory: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    class_launches, pose_class = phase_pose_class(device, args.ticks)
+    captured, counts = {}, {}
+    class_launches, pose_class = phase_pose_class(device, args.ticks, captured, counts)
+    # K1 at bank 1 on the class's operands; the table keeps the mission's time
+    class_k1 = phase_mission_shapes("PoseUKF class", captured, counts,
+                                    {"sigma_deltas[bank-first]": class_launches["sigma_deltas"]},
+                                    pose_class["card_ms"], stats)["sigma_deltas"]
+    pose_class["sigma_deltas_times_ms"] = dict(zip(TIME_FIELDS, class_k1))
+    del captured
+    pose_class["k1_latency_ms"] = phase_k1_latency(device)
     log(f"phase PoseUKF class: {time.perf_counter() - t0:.1f} s")
 
     # launches of each main path: the counters zeroed just before it, read just after

@@ -5,7 +5,7 @@
 // wrapper's equilibration and back-scaling around it: per matrix,
 // L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag A, tiny)), written with explicit
 // zeros above the diagonal. It runs common.cuh's equilibrated_core (the core
-// of K1, K8 and K11) in KEEP mode with the output as its scratch, so the
+// of K2, K3, K5 and K11) in KEEP mode with the output as its scratch, so the
 // finished equilibrated factor lands in place and one pass scales row r by
 // D_r. A matrix with a pivot that is not positive (or NaN) is written all NaN,
 // as a failed library factorization is in the plain version.
@@ -15,8 +15,9 @@
 // version is one thread per matrix through the bank-last output (coalesced:
 // neighbouring threads touch neighbouring addresses), and the ~n³/6
 // read-modify-writes of the factor go to device memory and L2, not
-// registers, so the scratch traffic sets its time, as in K1. A later version
-// gives a matrix a warp or a block and keeps the trailing panel on chip.
+// registers, so the scratch traffic sets its time, as it did in K1's first
+// design. K1 and K8 now give a matrix a warp with the factor in shared memory
+// (warp_factor.cuh); K12 is the next to take that core.
 //
 // Input: a (n, n, nb) in (col, row, nb) order, lower half (row >= col) read.
 // Output: out (n, n, nb) in the same order.
@@ -24,9 +25,6 @@
 #include "common.cuh"
 
 namespace slam {
-
-__device__ __forceinline__ float d_nan(float) { return __int_as_float(0x7fc00000); }
-__device__ __forceinline__ double d_nan(double) { return __longlong_as_double(0x7ff8000000000000LL); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

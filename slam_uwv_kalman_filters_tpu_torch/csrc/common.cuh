@@ -42,6 +42,8 @@ __device__ __forceinline__ float d_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double d_abs(double x) { return fabs(x); }
 __device__ __forceinline__ float d_tiny(float) { return 1.17549435e-38f; }  // FLT_MIN
 __device__ __forceinline__ double d_tiny(double) { return 2.2250738585072014e-308; }  // DBL_MIN
+__device__ __forceinline__ float d_nan(float) { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ double d_nan(double) { return __longlong_as_double(0x7ff8000000000000LL); }
 
 template <typename T>
 __device__ __forceinline__ T d_max(T a, T b) { return a > b ? a : b; }
@@ -123,7 +125,10 @@ __device__ __forceinline__ void rot_fwd(const Quat<T>& q, T vx, T vy, T vz, T& o
 }
 
 // ---- the equilibrated Cholesky core ---------------------------------------
-// Replaces the TPU core ops/kernels.py::equilibrated_sigma_columns.
+// Replaces the TPU core ops/kernels.py::equilibrated_sigma_columns for K2, K3
+// and K5 (pose_bodies.cuh), K11 (pose_markers.cu) and K12 (cholesky.cu). K1
+// and K8 run the same function one warp per matrix in shared memory
+// (warp_factor.cuh).
 //
 // One thread factors one instance: L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag
 // A, tiny)). `a` is the instance's (n, n) input in (col, row) order and only

@@ -68,8 +68,8 @@ class Kernel:
 KERNELS = {
     "sigma_deltas": Kernel(
         "sigma_deltas", "slam_sigma_deltas", "csrc/sigma_deltas.cu",
-        # a_t, out_t, scratch, n, nb, stream
-        (_P, _P, _P, _I32, _I64, _P),
+        # a and its (bank, row, col) strides, out and its strides, n, nb, stream
+        (_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _I32, _I64, _P),
     ),
     "pose_predict": Kernel(
         "pose_predict", "slam_pose_predict", "csrc/pose_predict.cu",
@@ -113,8 +113,8 @@ KERNELS = {
     ),
     "solve_spd": Kernel(
         "solve_spd", "slam_solve_spd", "csrc/solve_spd.cu",
-        # a_t, b_t, out_t, scratch, n, k, nb, stream
-        (_P, _P, _P, _P, _I32, _I32, _I64, _P),
+        # a, b, x, each followed by its (bank, row, col) strides, n, k, nb, stream
+        (_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _I32, _I32, _I64, _P),
     ),
     "indirect_predict": Kernel(
         "indirect_predict", "slam_indirect_predict", "csrc/indirect_predict.cu",
@@ -235,9 +235,10 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_lanes(name: str, device: torch.device, dtype: torch.dtype, **tensors) -> None:
-    """Device, dtype and contiguity checks shared by the kernel wrappers
-    (shapes are checked by each wrapper)."""
+def check_lanes(name: str, device: torch.device, dtype: torch.dtype, contiguous: bool = True, **tensors) -> None:
+    """Device, dtype and (unless ``contiguous`` is False, for a kernel that
+    takes strides) contiguity checks shared by the kernel wrappers (shapes
+    are checked by each wrapper)."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: kernels take float32 or float64, got {dtype}")
     for key, t in tensors.items():
@@ -245,5 +246,5 @@ def check_lanes(name: str, device: torch.device, dtype: torch.dtype, **tensors) 
             raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")

@@ -50,7 +50,7 @@ __all__ = [
     "solve_spd_plain",
 ]
 
-MAX_N = 64  # largest matrix the CUDA core takes (per-thread local arrays)
+MAX_N = 64  # largest matrix the CUDA cores take (K1, K8: two rows a lane; K12: per-thread local arrays)
 
 
 def equilibrated_cholesky(cov: torch.Tensor):
@@ -108,29 +108,44 @@ def sigma_deltas_lanes_plain(a_t: torch.Tensor) -> torch.Tensor:
     return sigma_deltas_plain(_mirror_half(a_t).permute(2, 1, 0)).permute(1, 2, 0).contiguous()
 
 
+def _strides(t: torch.Tensor, axes: tuple) -> tuple:
+    """Element strides of ``t``'s (bank, row, col) axes, as K1 and K8 take
+    them."""
+    return tuple(t.stride(i) for i in axes)
+
+
+def _sigma_deltas_launch(a: torch.Tensor, a_axes: tuple, out: torch.Tensor, out_axes: tuple) -> torch.Tensor:
+    """One K1 launch: ``a`` read through the strides of its (bank, row, col)
+    axes ``a_axes``, the deltas written into ``out`` through ``out_axes``
+    (row = sigma point, col = component)."""
+    n, nb = a.shape[a_axes[1]], a.shape[a_axes[0]]
+    cuda_lib.check_lanes("sigma_deltas", a.device, a.dtype, out=out)
+    cuda_lib.check_lanes("sigma_deltas", a.device, a.dtype, contiguous=False, a=a)
+    cuda_lib.KERNELS["sigma_deltas"].launch(
+        a.dtype, a.data_ptr(), *_strides(a, a_axes), out.data_ptr(), *_strides(out, out_axes), n, nb,
+        cuda_lib.stream_ptr(a.device),
+    )
+    return out
+
+
 def sigma_deltas_lanes_cuda(a_t: torch.Tensor) -> torch.Tensor:
-    """K1 on the card in its own layout: (n, n, N) lanes covariance, valid at
-    [c, r ≥ c], → (2n+1, n, N), one thread per instance."""
+    """K1 on the card in the lanes layout: (n, n, N) covariance, valid at
+    [c, r ≥ c], any strides → (2n+1, n, N), one warp per instance."""
     n, nb = a_t.shape[0], a_t.shape[-1]
     if a_t.ndim != 3 or a_t.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
         raise ValueError(f"sigma_deltas: need (n, n, N) with n <= {MAX_N}, got {tuple(a_t.shape)}")
     out_t = torch.empty((2 * n + 1, n, nb), dtype=a_t.dtype, device=a_t.device)
-    scratch = torch.empty((n, n, nb), dtype=a_t.dtype, device=a_t.device)
-    cuda_lib.check_lanes("sigma_deltas", a_t.device, a_t.dtype, a_t=a_t, out_t=out_t, scratch=scratch)
-    cuda_lib.KERNELS["sigma_deltas"].launch(
-        a_t.dtype, a_t.data_ptr(), out_t.data_ptr(), scratch.data_ptr(), n, nb,
-        cuda_lib.stream_ptr(a_t.device),
-    )
-    return out_t
+    return _sigma_deltas_launch(a_t, (2, 1, 0), out_t, (2, 0, 1))
 
 
 def sigma_deltas_cuda(cov: torch.Tensor) -> torch.Tensor:
-    """K1 on the card: (N, n, n) → (N, 2n+1, n). The kernel runs in the
-    bank-last (col, row, N) layout; the layout transposes are plain PyTorch
-    copies around it."""
-    if cov.ndim != 3 or cov.shape[1] != cov.shape[2]:
-        raise ValueError(f"sigma_deltas_cuda: need (N, n, n), got {tuple(cov.shape)}")
-    return sigma_deltas_lanes_cuda(cov.permute(2, 1, 0).contiguous()).permute(2, 0, 1)
+    """K1 on the card in the bank-first layout: (N, n, n), lower triangle
+    read, any strides → (N, 2n+1, n), one warp per instance."""
+    nb, n = cov.shape[0], cov.shape[-1]
+    if cov.ndim != 3 or cov.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
+        raise ValueError(f"sigma_deltas_cuda: need (N, n, n) with n <= {MAX_N}, got {tuple(cov.shape)}")
+    out = torch.empty((nb, 2 * n + 1, n), dtype=cov.dtype, device=cov.device)
+    return _sigma_deltas_launch(cov, (0, 1, 2), out, (0, 1, 2))
 
 
 def sigma_deltas_lanes(a_t: torch.Tensor) -> torch.Tensor:
@@ -139,7 +154,7 @@ def sigma_deltas_lanes(a_t: torch.Tensor) -> torch.Tensor:
     plain version for a CPU tensor. The counterpart of JAX
     ``_sigma_deltas_lanes(lstate.cov_t)``."""
     if a_t.device.type == "cuda":
-        return sigma_deltas_lanes_cuda(a_t.contiguous())
+        return sigma_deltas_lanes_cuda(a_t)
     if a_t.device.type == "cpu":
         return sigma_deltas_lanes_plain(a_t)
     raise ValueError(f"sigma_deltas_lanes: no path for device {a_t.device}")
@@ -180,32 +195,44 @@ def solve_spd_lanes_plain(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return solve_spd_plain(_mirror_half(a_t).permute(2, 1, 0), b_t.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
 
 
+def _solve_spd_launch(a: torch.Tensor, a_axes: tuple, b: torch.Tensor, b_axes: tuple, x: torch.Tensor,
+                      x_axes: tuple) -> torch.Tensor:
+    """One K8 launch: each tensor read or written through the strides of its
+    (bank, row, col) axes."""
+    n, nb, k = a.shape[a_axes[1]], a.shape[a_axes[0]], b.shape[b_axes[2]]
+    cuda_lib.check_lanes("solve_spd", a.device, a.dtype, x=x)
+    cuda_lib.check_lanes("solve_spd", a.device, a.dtype, contiguous=False, a=a, b=b)
+    cuda_lib.KERNELS["solve_spd"].launch(
+        a.dtype, a.data_ptr(), *_strides(a, a_axes), b.data_ptr(), *_strides(b, b_axes), x.data_ptr(),
+        *_strides(x, x_axes), n, k, nb, cuda_lib.stream_ptr(a.device),
+    )
+    return x
+
+
 def solve_spd_lanes_cuda(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
-    """K8 on the card in its own layout: (n, n, N) systems valid at
-    [c, r ≥ c], (n, k, N) right-hand sides → (n, k, N): a factor pass (one
-    thread per system) and a substitution pass (one thread per system and
-    right-hand side), both in one launch call."""
+    """K8 on the card in the lanes layout: (n, n, N) systems valid at
+    [c, r ≥ c], (n, k, N) right-hand sides, any strides → (n, k, N), one
+    warp per system in one launch."""
     n, nb = a_t.shape[0], a_t.shape[-1]
     if a_t.ndim != 3 or a_t.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
         raise ValueError(f"solve_spd: need (n, n, N) systems with n <= {MAX_N}, got {tuple(a_t.shape)}")
     if b_t.ndim != 3 or b_t.shape[0] != n or b_t.shape[2] != nb or b_t.shape[1] < 1:
         raise ValueError(f"solve_spd: need (n={n}, k, N={nb}) right-hand sides, got {tuple(b_t.shape)}")
-    k = b_t.shape[1]
-    out_t = torch.empty((n, k, nb), dtype=a_t.dtype, device=a_t.device)
-    scratch = torch.empty((n + 1, n, nb), dtype=a_t.dtype, device=a_t.device)  # the factor, then D
-    cuda_lib.check_lanes("solve_spd", a_t.device, a_t.dtype, a_t=a_t, b_t=b_t, out_t=out_t, scratch=scratch)
-    cuda_lib.KERNELS["solve_spd"].launch(
-        a_t.dtype, a_t.data_ptr(), b_t.data_ptr(), out_t.data_ptr(), scratch.data_ptr(), n, k, nb,
-        cuda_lib.stream_ptr(a_t.device),
-    )
-    return out_t
+    out_t = torch.empty((n, b_t.shape[1], nb), dtype=a_t.dtype, device=a_t.device)
+    return _solve_spd_launch(a_t, (2, 1, 0), b_t, (2, 0, 1), out_t, (2, 0, 1))
 
 
 def solve_spd_cuda(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """K8 on the card: (N, n, n), (N, n, k) → (N, n, k); the layout
-    transposes are plain PyTorch copies around the kernel."""
-    x_t = solve_spd_lanes_cuda(spd.permute(2, 1, 0).contiguous(), rhs.permute(1, 2, 0).contiguous())
-    return x_t.permute(2, 0, 1)
+    """K8 on the card in the bank-first layout: (N, n, n) systems, lower
+    triangle read, (N, n, k) right-hand sides, any strides → (N, n, k), one
+    warp per system in one launch."""
+    nb, n = spd.shape[0], spd.shape[-1]
+    if spd.ndim != 3 or spd.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
+        raise ValueError(f"solve_spd_cuda: need (N, n, n) systems with n <= {MAX_N}, got {tuple(spd.shape)}")
+    if rhs.ndim != 3 or rhs.shape[0] != nb or rhs.shape[1] != n or rhs.shape[2] < 1:
+        raise ValueError(f"solve_spd_cuda: need (N={nb}, n={n}, k) right-hand sides, got {tuple(rhs.shape)}")
+    x = torch.empty((nb, n, rhs.shape[2]), dtype=spd.dtype, device=spd.device)
+    return _solve_spd_launch(spd, (0, 1, 2), rhs, (0, 1, 2), x, (0, 1, 2))
 
 
 def solve_spd_banked(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
