@@ -77,7 +77,8 @@ csrc`` and then, in order:
    trace to the filtered one and prints both passes' times and the filtered
    and smoothed ATE; then checks and times K1 and K8 on the backward
    pass's (bank-first) operands, K1 beside ``cholesky_ex`` + the ± stack, K8
-   beside ``cholesky_ex`` + ``cholesky_solve``;
+   beside ``cholesky_ex`` + ``cholesky_solve``, and checks K3 on the forward
+   pass's operands and times it alone there per model;
 18. (after the checks of 15) checks K9, the IndirectPoseUKF predict, on
    perturbed error states, and K10, its marker update with the 12-DOF
    augmentation, with 1 and 4 corners, shared and per-instance pixels and
@@ -107,9 +108,10 @@ csrc`` and then, in order:
    against its plain version;
 24. runs the Cholesky bank: ``ops.kernels.cholesky_banked`` on the
    covariance bank the shared mission second of 3 leaves (bank 131 072,
-   float32), counted (one K12), and checks and times K12 on its operands
-   beside its plain version and ``torch.linalg.cholesky_ex`` with the same
-   equilibration;
+   float32, bank-first, read in place), counted (one K12), and checks and
+   times K12 on its operands beside its plain version and
+   ``torch.linalg.cholesky_ex`` with the same equilibration, and the call's
+   wall time beside K12's event time;
 25. runs the roofline: ``tools.roofline.measure_fma`` (chained K13
    launches) and ``measure_hbm`` (the streaming triad), logged beside the
    data sheet's peaks, and checks and times K13 on its operands;
@@ -132,8 +134,10 @@ csrc`` and then, in order:
 
 A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
 calls held behind a spin kernel, so the host's time to enqueue each is
-hidden); the ``ptxas`` lines of K1's and K8's warp-per-matrix kernels
-(registers, stack frame, spills) are printed on their own.
+hidden); the ``ptxas`` lines of the warp-per-matrix and warp-per-instance
+kernels K1, K3, K8 and K12 (registers, stack frame, spills) are printed on
+their own, and the warps a block K3 (per model) and K12 choose at the main
+paths' banks.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
@@ -209,6 +213,9 @@ PROBE_LIMIT = 1e-5
 BOTTOM_BANK = 65536
 INDIRECT_BANK = 65536
 SMOOTHER_BANK = 256
+# the warp-per-matrix and warp-per-instance kernels, whose ptxas lines are
+# printed on their own
+WARP_KERNELS = ("sigma_deltas_kernel", "solve_spd_kernel", "cholesky_kernel", "pose_update_model_kernel")
 # the visual marker of tests/test_full_mission.py: four corners of a 0.3 m
 # square, a camera whose optical axis is body +x, a 1e-6·I pose prior
 MARKER_CORNERS = ((0.15, 0.15, 0.0), (-0.15, 0.15, 0.0), (-0.15, -0.15, 0.0), (0.15, -0.15, 0.0))
@@ -217,6 +224,13 @@ MARKER_CAM_Q = (0.5, -0.5, 0.5, -0.5)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _warps(name: str, dtype, *sizes) -> int:
+    """Warps a block kernel ``name`` (K3, K12) launches with at ``sizes``."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.KERNELS[name].warps_per_block(dtype, *sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +379,7 @@ def capture_operands(store: dict, counts: dict, keep=lambda key: True):
          recording(ifu._indirect_markers_lanes, lambda a: f"indirect_markers[k={a[4].shape[0]}]")),
         (pmf, "_pose_markers_lanes", recording(pmf._pose_markers_lanes, lambda a: f"pose_markers[k={a[3].shape[0]}]")),
         (kernels, "cholesky_lanes_cuda", recording(kernels.cholesky_lanes_cuda, lambda a: "cholesky")),
+        (kernels, "cholesky_cuda", recording(kernels.cholesky_cuda, lambda a: "cholesky[bank-first]")),
         (roofline, "fma_probe_cuda", recording(roofline.fma_probe_cuda, lambda a: "fma_probe")),
     )
 
@@ -401,8 +416,8 @@ def _rel(out, ref):
 
 
 def _pair(name):
-    """(kernel wrapper, plain version) of kernel ``name``; K1's and K8's
-    bank-first wrappers under ``<name>[bank-first]``."""
+    """(kernel wrapper, plain version) of kernel ``name``; K1's, K8's and
+    K12's bank-first wrappers under ``<name>[bank-first]``."""
     from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
     from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
@@ -415,6 +430,7 @@ def _pair(name):
     return {
         "sigma_deltas[bank-first]": (kernels.sigma_deltas_cuda, kernels.sigma_deltas_plain),
         "solve_spd[bank-first]": (kernels.solve_spd_cuda, kernels.solve_spd_plain),
+        "cholesky[bank-first]": (kernels.cholesky_cuda, kernels.cholesky_plain),
         "sigma_deltas": (kernels.sigma_deltas_lanes_cuda, kernels.sigma_deltas_lanes_plain),
         "pose_step": (puf.pose_step_lanes_cuda, puf.pose_step_lanes_plain),
         "velocity_step": (vf.velocity_step_lanes_cuda, vf.velocity_step_lanes_plain),
@@ -433,10 +449,10 @@ def _pair(name):
 
 
 def _lanes_view(key: str, args: tuple) -> tuple:
-    """K1's and K8's bank-first operands (``<name>[bank-first]``) as views
-    in the lanes layout the checks, bounds and library calls read; other
-    operands as they are."""
-    if key == "sigma_deltas[bank-first]":
+    """K1's, K8's and K12's bank-first operands (``<name>[bank-first]``) as
+    views in the lanes layout the checks, bounds and library calls read;
+    other operands as they are."""
+    if key in ("sigma_deltas[bank-first]", "cholesky[bank-first]"):
         return (args[0].permute(2, 1, 0),)
     if key == "solve_spd[bank-first]":
         return args[0].permute(2, 1, 0), args[1].permute(1, 2, 0)
@@ -444,14 +460,15 @@ def _lanes_view(key: str, args: tuple) -> tuple:
 
 
 def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> None:
-    """Run kernel ``name`` (K1 and K8 also ``<name>[bank-first]``) and its
-    plain version on ``args``, log the errors beside the limit and raise past
-    it; keep the float32 max abs error per kernel in ``stats``."""
+    """Run kernel ``name`` (K1, K8 and K12 also ``<name>[bank-first]``) and
+    its plain version on ``args``, log the errors beside the limit and raise
+    past it; keep the float32 max abs error per kernel in ``stats``."""
     kern, plain = _pair(name)
     ko, po = kern(*args), plain(*args)
     torch.cuda.synchronize()
-    if name.endswith("[bank-first]"):  # outputs (N, 2n+1, n) or (N, n, k) as lanes views
-        name, args, ko, po = name.split("[")[0], _lanes_view(name, args), ko.permute(1, 2, 0), po.permute(1, 2, 0)
+    if name.endswith("[bank-first]"):  # outputs (N, 2n+1, n), (N, n, k) or (N, n, n) as lanes views
+        axes = (2, 1, 0) if name.startswith("cholesky") else (1, 2, 0)
+        name, args, ko, po = name.split("[")[0], _lanes_view(name, args), ko.permute(*axes), po.permute(*axes)
     if name == "sigma_deltas":
         dtype = ko.dtype
         scale = po.abs().amax(dim=(0, 1), keepdim=True)
@@ -2159,10 +2176,10 @@ def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict
     (``pose_step_bank``: K2, K3) stores every posterior on the card, the
     backward pass runs K1 and K8 each tick. Counters zeroed just before and
     read just after; K1's and K8's operands of the last backward tick are
-    recorded. Holds the smoothed covariance trace to no more than the
-    filtered one at every tick (relative slack 1e-4) and both outputs to
-    finite values; prints the two passes' times and the filtered and
-    smoothed ATE."""
+    recorded, and K3's of the forward pass. Holds the smoothed covariance
+    trace to no more than the filtered one at every tick (relative slack
+    1e-4) and both outputs to finite values; prints the two passes' times
+    and the filtered and smoothed ATE."""
     import numpy as np
 
     from slam_uwv_kalman_filters_tpu_torch.models import fleet_setup, monte_carlo
@@ -2191,7 +2208,8 @@ def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    with capture_operands(captured, counts, keep=lambda key: key.split("[")[0] in ("solve_spd", "sigma_deltas")), \
+    with capture_operands(captured, counts,
+                          keep=lambda key: key.split("[")[0] in ("solve_spd", "sigma_deltas", "pose_update_model")), \
             patched((sm, "smooth_backward", backward)):
         out = sm.run_trajectory_smoothed(bs, params, inputs)
     torch.cuda.synchronize()
@@ -2244,8 +2262,9 @@ def cholesky_check_operands(n: int, nb: int, dtype, device, gen: torch.Generator
 def phase_checks_cholesky_probe(device):
     """K12 against its plain version for n = 9, 53, 55, 59, 64 at banks 1,
     127 and 300, float32 and float64 (explicit zeros above the diagonal; one
-    non-SPD matrix NaN in both, whole); n = 65 refused. K13 against its
-    plain version on random operands at the probe's size."""
+    non-SPD matrix NaN in both, whole), at n = 53 also bank-first and on a
+    bank-first view; n = 65 refused. K13 against its plain version on random
+    operands at the probe's size."""
     from slam_uwv_kalman_filters_tpu_torch.ops import kernels
     from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
@@ -2259,6 +2278,11 @@ def phase_checks_cholesky_probe(device):
                 compare("cholesky", f"cholesky[n={n}, bank {nb}{', one non-SPD' if nb == 127 else ''}]", (a_t,))
                 if nb == 127 and not bool(torch.isnan(kernels.cholesky_lanes_cuda(a_t)[..., 5]).all()):
                     raise AssertionError("K12 did not give NaN for a matrix that is not SPD")
+                if n == 53 and nb > 1:  # bank-first, and a bank-first view of the lanes tensor
+                    compare("cholesky[bank-first]", f"cholesky[bank-first, n={n}, bank {nb}]",
+                            (a_t.permute(2, 1, 0).contiguous(),))
+                    compare("cholesky[bank-first]", f"cholesky[bank-first view, n={n}, bank {nb}]",
+                            (a_t.permute(2, 1, 0),))
     try:
         kernels.cholesky_banked(torch.eye(65, device=device).expand(2, 65, 65))
     except ValueError as err:
@@ -2289,7 +2313,7 @@ def phase_cholesky_bank(ls, like, captured: dict, counts: dict):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
-    log(f"Cholesky bank: bank={nb} n=53 float32 seconds={seconds:.6f} (layout copies included) launches={launches}")
+    log(f"Cholesky bank: bank={nb} n=53 float32 seconds={seconds:.6f} (wall time of the call) launches={launches}")
     if launches != {**_NONE, "cholesky": 1}:
         raise AssertionError(f"the Cholesky bank launched {launches}, expected one K12")
     diag = torch.diagonal(L, dim1=1, dim2=2)
@@ -2496,6 +2520,27 @@ def phase_pose_class(device, ticks: int, captured: dict, counts: dict):
                       "position_diff_m": dpos, "orientation_diff_rad": dang}
 
 
+def phase_k3_alone(forward: dict, mission_ms: float, mission_bank: int) -> dict:
+    """K3 on the card alone (:func:`_device_ms`) on the survey smoother's
+    forward operands (bank 256, float32), one model at a time, beside its
+    launch-weighted mean on the shared mission second's operands; each held
+    to its plain version first on the same operands in float64 (in float32
+    the pressure innovation of a state near its prediction sits within a few
+    ulps of 1e5 Pa, ~0.02 Pa, of either version). Returns {model: ms}."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+
+    out = {}
+    for key, args in sorted(forward.items()):
+        args64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+        compare("pose_update_model", f"{key} survey forward bank={args[1].shape[-1]}", args64)
+        out[args[0]] = _device_ms(lambda: puf.update_model_lanes_cuda(*args))
+    log(f"K3 alone on the survey forward's operands (bank {SMOOTHER_BANK}, float32, "
+        f"{_warps('pose_update_model', torch.float32, 0, SMOOTHER_BANK)} warp a block): "
+        + " ".join(f"{m}={'not measured' if v is None else f'{v:.4f} ms'}" for m, v in out.items())
+        + f"; at bank {mission_bank} {mission_ms:.3f} ms (events, launch-weighted over the shared second's models)")
+    return out
+
+
 def phase_k1_latency(device):
     """K1 on the card alone (:func:`_device_ms`), float32, bank-first, at
     bank 1 for n = 1 … 64 and at bank 256 for n = 53: how one warp's time
@@ -2545,9 +2590,15 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "stack frame" in line:
             log("ptxas: " + line.strip())
         entry = line.split("'")[1] if "Compiling entry" in line and "'" in line else entry
-        if ("sigma_deltas_kernel" in entry or "solve_spd_kernel" in entry) and (
-                "registers" in line or "stack frame" in line):
-            log(f"ptxas warp-per-matrix kernel {entry}: {line.strip()}")
+        if any(k in entry for k in WARP_KERNELS) and ("registers" in line or "stack frame" in line):
+            log(f"ptxas warp kernel {entry}: {line.strip()}")
+    from slam_uwv_kalman_filters_tpu_torch.models.pose_update_fused import MODEL_ID
+
+    for dtype in (torch.float32, torch.float64):
+        log(f"warps a block, {str(dtype).split('.')[-1]}: K12 n=53 bank {args.bank}: "
+            f"{_warps('cholesky', dtype, 53, args.bank)}; K3 at bank {args.bank} / {SMOOTHER_BANK}: "
+            + ", ".join(f"{model} {_warps('pose_update_model', dtype, i, args.bank)} / "
+                        f"{_warps('pose_update_model', dtype, i, SMOOTHER_BANK)}" for model, i in MODEL_ID.items()))
 
     phase_checks(device)
     phase_mean_accuracy(device)
@@ -2570,7 +2621,11 @@ def main() -> int:
     t0 = time.perf_counter()
     captured, counts = {}, {}
     cholesky_launches, cholesky_ms = phase_cholesky_bank(ls, like, captured, counts)
-    times.update(phase_mission_shapes("Cholesky bank", captured, counts, {"cholesky": 1}, cholesky_ms, stats))
+    times.update(phase_mission_shapes("Cholesky bank", captured, counts, {"cholesky[bank-first]": 1}, cholesky_ms,
+                                      stats))
+    log(f"Cholesky bank: wall {cholesky_ms:.3f} ms for the call against K12's {times['cholesky'][0]:.3f} ms "
+        f"(events, the same operands; {100 * (1 - times['cholesky'][0] / cholesky_ms):.1f}% outside the kernel, "
+        f"{_warps('cholesky', torch.float32, 53, args.bank)} warps a block)")
     log(f"phase Cholesky bank: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     captured, counts = {}, {}
@@ -2639,6 +2694,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     captured, counts = {}, {}
     smoother_launches, smoother = phase_smoother(device, SMOOTHER_BANK, args.smoother_seconds, captured, counts)
+    forward_k3 = {k: captured.pop(k) for k in [k for k in captured if k.startswith("pose_update_model")]}
+    smoother["k3_alone_ms"] = phase_k3_alone(forward_k3, times["pose_update_model"][0], args.bank)
+    del forward_k3
     # K1 and K8 on the backward pass's operands; the table keeps K1's time on
     # the mission's operands above and K8's from here
     backward = phase_mission_shapes("survey smoother's backward pass", captured, counts,

@@ -1,5 +1,5 @@
 // Shared device code of the PoseUKF kernels: typed math, the quaternion
-// helpers, the equilibrated Cholesky core and the update tail of K3 and K4.
+// helpers, the equilibrated Cholesky core and the update tail of K4 and K5.
 //
 // Layout: every per-instance array is bank-last, (..., nb), one thread per
 // instance. A thread offsets its base pointers by its instance b, and element
@@ -125,10 +125,9 @@ __device__ __forceinline__ void rot_fwd(const Quat<T>& q, T vx, T vy, T vz, T& o
 }
 
 // ---- the equilibrated Cholesky core ---------------------------------------
-// Replaces the TPU core ops/kernels.py::equilibrated_sigma_columns for K2, K3
-// and K5 (pose_bodies.cuh), K11 (pose_markers.cu) and K12 (cholesky.cu). K1
-// and K8 run the same function one warp per matrix in shared memory
-// (warp_factor.cuh).
+// Replaces the TPU core ops/kernels.py::equilibrated_sigma_columns for K2 and
+// K5 (pose_bodies.cuh) and K11 (pose_markers.cu). K1, K3, K8 and K12 run the
+// same function one warp per matrix in shared memory (warp_factor.cuh).
 //
 // One thread factors one instance: L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag
 // A, tiny)). `a` is the instance's (n, n) input in (col, row) order and only
@@ -181,7 +180,7 @@ struct NoEmit {
   __device__ void operator()(int, T) const {}
 };
 
-// ---- the update tail shared by K3 and K4 -----------------------------------
+// ---- the update tail shared by K4 and K5 (K3's first design) ---------------
 // Replaces the TPU tail models/pose_update_fused.py::_update_tail_from_sc.
 //
 // From the innovation covariance S (M x M, registers), the cross-covariance C

@@ -1,6 +1,9 @@
 // The per-instance bodies of the PoseUKF predict (K2) and the in-kernel-model
-// update (K3), one copy each, called by the __global__ kernels of K2
-// (pose_predict.cu), K3 (pose_update.cu) and the whole step K5 (pose_step.cu).
+// update (K3's function), one copy each, called by the __global__ kernels of
+// K2 (pose_predict.cu) and the whole step K5 (pose_step.cu). K3
+// (pose_update.cu) computes the update one warp per instance
+// (warp_update.cuh) with this body's operation order, and so its bits; it
+// shares measure() with it.
 //
 // Each body is the work of one thread on instance b, with every operand
 // pointer at its array's start (bank-last layout, common.cuh). The caller
@@ -326,7 +329,7 @@ __device__ void measure(int model, const T* m, Delta dl, const T* aux, const T* 
   }
 }
 
-// ---- K3: the whole in-kernel-model update of instance b --------------------
+// ---- K3's function: the whole in-kernel-model update of instance b ---------
 // See pose_update.cu for the algorithm and the operands. `scal` is the
 // [threshold, aux ×5] block; with banked_aux the aux values come from the
 // (5, nb) lanes aux_b instead.

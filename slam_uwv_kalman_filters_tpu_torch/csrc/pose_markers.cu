@@ -8,7 +8,7 @@
 //      and the shared marker-pose prior; the augmented mean is the 54
 //      storage rows and the marker pose;
 //   2. for each corner c (a runtime loop, no cap): a fresh equilibrated 59x59
-//      factor (common.cuh::equilibrated_core in keep mode, K12's mode); the
+//      factor (common.cuh::equilibrated_core in keep mode); the
 //      119 sigma points in the order zero, +columns, -columns, each delta
 //      rebuilt from its factor column (row k of column j is ±L~(k, j)·d_k;
 //      the 119x59 deltas are never stored) and only at the 12 tangent rows

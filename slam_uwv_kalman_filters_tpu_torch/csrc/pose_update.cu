@@ -5,78 +5,143 @@
 // (launched by _pose_update_model_lanes), for all seven FUSED_MODELS selected
 // by a runtime model id: velocity, z_position, xy_position, acceleration,
 // pressure, water_velocity, body_efforts (Fossen inverse dynamics from a
-// 119-scalar shared vehicle block). Per instance, one thread:
+// 119-scalar shared vehicle block). Per instance:
 //   1. the equilibrated Cholesky core keeps the factor L̃ and the scale d;
 //   2. h on the zero point and on μ ⊞ (±column j), the delta row k being
 //      ±L̃(k, j)·d[k] — the (107, 53) delta tensor is never built;
-//   3. the measurement mean, ν = z − ẑ, S = ½Σ dz·dzᵀ + R (second pass over
-//      the stored Z), and C = ½·d ⊙ Σ_j L̃(:, j)·(Z⁺_j − Z⁻_j) from the factor;
+//   3. the measurement mean, ν = z − ẑ, S = ½Σ dz·dzᵀ + R, and
+//      C = ½·d ⊙ Σ_j L̃(:, j)·(Z⁺_j − Z⁻_j) from the factor;
 //   4. the m x m Cholesky of S, W = C·L_S^-T by ascending forward
 //      substitution, y = L_S^-1·ν, m2 = |y|², the gate as a select (a
 //      threshold < 0 accepts any; a NaN S leaves the instance bit-identical to
 //      its prior), the correction μ ⊞ W·y and the downdate cov − W·Wᵀ on the
-//      valid half (row >= col) — the tail K4 shares (common.cuh::update_tail).
+//      valid half (row >= col).
 // Model parameters: 5 aux values, shared (scal[1..5]) or per instance (aux,
 // (5, nb)); scal[0] is the gate threshold.
 //
-// Bound on Hopper: memory, like K2 — the kept factor (53², bank-last global
-// scratch) is read once per sigma column by h and again for C, and the
-// downdate reads and writes the valid half of the covariance. This first
-// version is one thread per instance with coalesced bank-last accesses; a
-// later one stages the factor in shared memory.
+// Bound on Hopper: memory (the valid covariance half read and written: 0.47
+// ms at bank 131 072, float32). Its first design ran pose_bodies.cuh::
+// update_model_body one thread per instance with the factor, the
+// measurements and C/W in bank-last global scratch: ~n³/6 dependent
+// read-modify-writes through L2 and 254 registers a thread, ~1% of the
+// bound. Here one warp updates one instance (warp_update.cuh): the factor,
+// the mean, the measurements, C and W in the warp's tile of shared memory,
+// lanes sharing out independent outputs, every output in the one-thread
+// body's order, so the results are its bits. The block's warps load their
+// instances' valid halves and means together, bank-minor (block_walk), and
+// the downdate reads the prior a second time the same way rather than keep
+// a second tile that would halve the warps resident; it writes only the
+// valid half. The warps per block are chosen from the occupancy of the
+// model's tile (resident_warps_log2). K5 (pose_step.cu) keeps the one-thread
+// body.
 //
 // Operands (bank-last): z (m, nb), R (m, m, nb), mu (54, nb), cov (53, 53, nb)
 // half-valid, scal (6), mscal (119) or null, aux (5, nb) or null.
 // Outputs: cov_out (53, 53, nb) valid half, mu_out (54, nb), m2 (nb),
-// acc (nb) as 1/0, nu (m, nb). Scratch: c (53, 53, nb), zs (2, 53, m, nb),
-// cw (m, 53, nb). The body (measurement models included) is
-// pose_bodies.cuh::update_model_body, which K5 (pose_step.cu) runs too.
+// acc (nb) as 1/0, nu (m, nb). No scratch.
 
-#include "pose_bodies.cuh"
+#include "warp_update.cuh"
 
 namespace slam {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pose_update_model_kernel(int model, int banked_aux, const T* __restrict__ z,
-                         const T* __restrict__ rmat, const T* __restrict__ mu,
-                         const T* __restrict__ cov, const T* __restrict__ scal,
-                         const T* __restrict__ msc, const T* __restrict__ aux_b,
-                         T* __restrict__ cov_out, T* __restrict__ mu_out, T* __restrict__ m2_out,
-                         T* __restrict__ acc_out, T* __restrict__ nu_out, T* __restrict__ c_s,
-                         T* __restrict__ zs_s, T* __restrict__ cw_s, long long nb) {
-  const long long b = instance_index();
-  if (b >= nb) return;
-  update_model_body<T>(b, model, banked_aux, z, rmat, mu, cov, scal, msc, aux_b, cov_out, mu_out,
-                       m2_out, acc_out, nu_out, c_s, zs_s, cw_s, nb);
+__global__ void __launch_bounds__(kWarpSize* kMaxWarps, sizeof(T) == 4 ? 2 : 1)
+pose_update_model_kernel(int model, int banked_aux, const T* __restrict__ z, const T* __restrict__ rmat,
+                         const T* __restrict__ mu, const T* __restrict__ cov, const T* __restrict__ scal,
+                         const T* __restrict__ msc, const T* __restrict__ aux_b, T* __restrict__ cov_out,
+                         T* __restrict__ mu_out, T* __restrict__ m2_out, T* __restrict__ acc_out,
+                         T* __restrict__ nu_out, long long nb, int log_w) {
+  constexpr int N = kPoseN;
+  const int M = model_dim(model);
+  const UpdateTile t(M);
+  T* const base = warp_smem<T>();
+  const long long b0 = static_cast<long long>(blockIdx.x) << log_w;
+  const int w = threadIdx.x / kWarpSize;
+  // bank-last (col, row, nb) matrices and (row, nb) vectors; a vector's
+  // column stride only steers block_walk's lanes along its rows
+  const Strides gc{1, nb, N * nb}, gv{1, nb, kPoseS * nb};
+  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
+    base[i * t.size + c * t.ld + r] = cov[(b0 + i) + r * nb + c * (N * nb)];
+  });
+  block_walk(gv, kPoseS, 1, false, log_w, b0, nb, [&](int i, int r, int) {
+    base[i * t.size + t.mean + r] = mu[(b0 + i) + r * nb];
+  });
+  __syncthreads();
+  if (b0 + w < nb) {
+    const long long b = b0 + w;
+    T aux[5];
+    for (int i = 0; i < 5; ++i) aux[i] = banked_aux ? aux_b[b + i * nb] : scal[1 + i];
+    warp_update_model<T>(base + w * t.size, t, model, aux, msc, scal[0], z + b, rmat + b, nb);
+  }
+  __syncthreads();
+  // the downdate cov − W·Wᵀ on the valid half where accepted, else the prior
+  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
+    const T* s = base + i * t.size;
+    const long long e = (b0 + i) + r * nb + c * (N * nb);
+    const T prior = cov[e];
+    if (s[t.acc] != T(0)) {
+      T acc = T(0);
+      for (int k = 0; k < M; ++k) acc += s[t.cw + k * N + c] * s[t.cw + k * N + r];
+      cov_out[e] = prior - acc;
+    } else {
+      cov_out[e] = prior;
+    }
+  });
+  block_walk(gv, kPoseS, 1, false, log_w, b0, nb, [&](int i, int r, int) {
+    mu_out[(b0 + i) + r * nb] = base[i * t.size + t.mean + r];
+  });
+  block_walk(gv, M, 1, false, log_w, b0, nb, [&](int i, int r, int) {
+    nu_out[(b0 + i) + r * nb] = base[i * t.size + t.nu + r];
+  });
+  block_walk(gv, 1, 1, false, log_w, b0, nb, [&](int i, int, int) {
+    m2_out[b0 + i] = base[i * t.size + t.m2];
+    acc_out[b0 + i] = base[i * t.size + t.acc];
+  });
+}
+
+// The launch's warps per block as log2 (cached per model), or a negated
+// cudaError_t.
+template <typename T>
+int pose_update_model_log_w(int model, long long nb) {
+  if (model_dim(model) == 0 || nb < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  static const long long max_bytes = opt_in_smem(pose_update_model_kernel<T>);
+  if (max_bytes < 0) return static_cast<int>(max_bytes);
+  const long long bytes = static_cast<long long>(UpdateTile(model_dim(model)).size) * sizeof(T);
+  const int log_w = resident_warps_log2(pose_update_model_kernel<T>, nb, bytes, max_bytes);
+  if (log_w < -1) return log_w + 1;
+  return log_w < 0 ? -static_cast<int>(cudaErrorInvalidValue) : log_w;
 }
 
 template <typename T>
-int launch_pose_update_model(int model, int banked_aux, const void* z, const void* r,
-                             const void* mu, const void* cov, const void* scal, const void* msc,
-                             const void* aux, void* cov_out, void* mu_out, void* m2, void* acc,
-                             void* nu, void* c, void* zs, void* cw, long long nb, void* stream) {
-  if (model_dim(model) == 0) return static_cast<int>(cudaErrorInvalidValue);
+int launch_pose_update_model(int model, int banked_aux, const void* z, const void* r, const void* mu,
+                             const void* cov, const void* scal, const void* msc, const void* aux, void* cov_out,
+                             void* mu_out, void* m2, void* acc, void* nu, long long nb, void* stream) {
   if (model == kBodyEfforts && msc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (banked_aux && aux == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  pose_update_model_kernel<T><<<blocks_for(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      model, banked_aux, static_cast<const T*>(z), static_cast<const T*>(r),
-      static_cast<const T*>(mu), static_cast<const T*>(cov), static_cast<const T*>(scal),
-      static_cast<const T*>(msc), static_cast<const T*>(aux), static_cast<T*>(cov_out),
-      static_cast<T*>(mu_out), static_cast<T*>(m2), static_cast<T*>(acc), static_cast<T*>(nu),
-      static_cast<T*>(c), static_cast<T*>(zs), static_cast<T*>(cw), nb);
+  const int log_w = pose_update_model_log_w<T>(model, nb);
+  if (log_w < 0) return -log_w;
+  const size_t bytes = static_cast<size_t>(UpdateTile(model_dim(model)).size) * sizeof(T) << log_w;
+  const unsigned blocks = static_cast<unsigned>((nb + (1LL << log_w) - 1) >> log_w);
+  pose_update_model_kernel<T><<<blocks, kWarpSize << log_w, bytes, static_cast<cudaStream_t>(stream)>>>(
+      model, banked_aux, static_cast<const T*>(z), static_cast<const T*>(r), static_cast<const T*>(mu),
+      static_cast<const T*>(cov), static_cast<const T*>(scal), static_cast<const T*>(msc),
+      static_cast<const T*>(aux), static_cast<T*>(cov_out), static_cast<T*>(mu_out), static_cast<T*>(m2),
+      static_cast<T*>(acc), static_cast<T*>(nu), nb, log_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace slam
 
-#define SLAM_POSE_UPDATE_ENTRY(NAME, T)                                                          \
-  extern "C" int NAME(int model, int banked_aux, const void* z, const void* r, const void* mu,    \
-                      const void* cov, const void* scal, const void* msc, const void* aux,        \
-                      void* cov_out, void* mu_out, void* m2, void* acc, void* nu, void* c,        \
-                      void* zs, void* cw, long long nb, void* stream) {                           \
-    return slam::launch_pose_update_model<T>(model, banked_aux, z, r, mu, cov, scal, msc, aux,    \
-                                             cov_out, mu_out, m2, acc, nu, c, zs, cw, nb, stream); \
+#define SLAM_POSE_UPDATE_ENTRY(NAME, T)                                                                       \
+  extern "C" int NAME(int model, int banked_aux, const void* z, const void* r, const void* mu,                 \
+                      const void* cov, const void* scal, const void* msc, const void* aux, void* cov_out,      \
+                      void* mu_out, void* m2, void* acc, void* nu, long long nb, void* stream) {               \
+    return slam::launch_pose_update_model<T>(model, banked_aux, z, r, mu, cov, scal, msc, aux, cov_out,        \
+                                             mu_out, m2, acc, nu, nb, stream);                                 \
+  }                                                                                                            \
+  extern "C" int NAME##_warps(int model, long long nb) {                                                       \
+    const int log_w = slam::pose_update_model_log_w<T>(model, nb);                                             \
+    return log_w < 0 ? log_w : 1 << log_w;                                                                     \
   }
 
 SLAM_POSE_UPDATE_ENTRY(slam_pose_update_model_f32, float)

@@ -1,8 +1,9 @@
-// The warp-per-matrix equilibrated Cholesky core of K1 and K8.
+// The warp-per-matrix equilibrated Cholesky core of K1, K3, K8 and K12.
 //
-// Replaces, for K1 and K8, the TPU core ops/kernels.py::equilibrated_sigma_
-// columns, as common.cuh's equilibrated_core does for K2, K3, K5, K11 and
-// K12. The function and the operation order are equilibrated_core's:
+// Replaces, for K1, K3, K8 and K12, the TPU core ops/kernels.py::
+// equilibrated_sigma_columns (and, for K12, the factor of _cholesky_lanes_
+// kernel), as common.cuh's equilibrated_core does for K2, K5 and K11. The
+// function and the operation order are equilibrated_core's:
 // L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag A, tiny)), only the lower half
 // (row >= col) of A read; right-looking, column j scaled by the reciprocal of
 // its pivot, then the trailing columns downdated in ascending j, each entry
@@ -12,12 +13,13 @@
 // One warp factors one matrix in dynamic shared memory. Per warp the block's
 // shared memory holds a tile: the matrix column-major with an odd leading
 // dimension ld (entry (r, c) at s[c*ld + r]), then D and D^-1 (n each), then
-// whatever the kernel adds (K8: the right-hand sides). Lanes own rows: row r
-// belongs to lane r % 32, so n <= 64 gives a lane two rows, whose column-j
-// entries it keeps in registers through step j. Every lane reads the pivot and
-// l_kj from one shared address (a broadcast); a warp walking a row (stride
-// ld) hits 32 distinct banks because ld is odd. There is no global scratch and
-// no per-lane array indexed by a loop variable.
+// whatever the kernel adds (K8: the right-hand sides; K3: see
+// warp_update.cuh). Lanes own rows: row r belongs to lane r % 32, so n <= 64
+// gives a lane two rows, whose column-j entries it keeps in registers through
+// step j. Every lane reads the pivot and l_kj from one shared address (a
+// broadcast); a warp walking a row (stride ld) hits 32 distinct banks because
+// ld is odd. There is no global scratch and no per-lane array indexed by a
+// loop variable.
 //
 // A block holds W = 2^log_w warps and W consecutive instances. Global arrays
 // are read and written through element strides (bank, row, col), so the
@@ -84,10 +86,12 @@ __device__ __forceinline__ void block_walk(const Strides& g, int R, int C, bool 
 // One warp: the lower half of A in s (column-major, ld) -> the equilibrated
 // factor L̃ = chol(D^-1·A·D^-1) in place with explicit zeros above the
 // diagonal (factor column j is s[j*ld + r]·D_r), D in d and D^-1 in dinv.
-// Returns false, and stops, at the first pivot that is not positive (or NaN);
-// the value is the same on every lane.
-template <typename T>
+// Returns false at the first pivot that is not positive (or NaN), the same
+// value on every lane; with STOP it stops there, without it factors on as
+// equilibrated_core does (the NaN then runs through the rest of the factor).
+template <typename T, bool STOP = true>
 __device__ bool warp_factor(T* s, T* d, T* dinv, int n, int ld) {
+  bool fine = true;
   const int r0 = threadIdx.x % kWarpSize, r1 = r0 + kWarpSize;
   for (int r = r0; r < n; r += kWarpSize) {
     d[r] = d_sqrt(d_max(s[r * ld + r], d_tiny(T(0))));
@@ -104,7 +108,10 @@ __device__ bool warp_factor(T* s, T* d, T* dinv, int n, int ld) {
     __syncwarp();
     T* cj = s + j * ld;
     const T piv = d_sqrt(cj[j]);
-    if (!(piv > T(0))) return false;
+    if (!(piv > T(0))) {
+      if (STOP) return false;
+      fine = false;
+    }
     const T inv = T(1) / piv;
     T x0 = T(0), x1 = T(0);
     if (r0 > j && r0 < n) { x0 = cj[r0] * inv; cj[r0] = x0; }
@@ -130,7 +137,7 @@ __device__ bool warp_factor(T* s, T* d, T* dinv, int n, int ld) {
     }
   }
   __syncwarp();
-  return true;
+  return fine;
 }
 
 // ---- host side -------------------------------------------------------------
@@ -157,6 +164,32 @@ inline int warps_log2(long long nb, long long tile_bytes, long long max_bytes) {
   int log_w = kMaxWarpsLog2;
   while (log_w > 0 && ((per_warp << log_w) > max_bytes || (nb >> log_w) < kSpreadBlocks)) --log_w;
   return log_w;
+}
+
+// log2 of the warps per block for a kernel whose warps take `warp_bytes`
+// each (block-wide extras included): among the block sizes the bank spreads
+// over kSpreadBlocks blocks (one warp always), the largest that keeps
+// kResidentWarps warps resident on an SM, or else the one that keeps the
+// most (the occupancy calculator counts shared memory and registers). More
+// warps a block coalesce more of a bank-last walk; more warps an SM hide
+// more of each warp's latency. -1 if one warp does not fit, or the negated
+// cudaError_t of a failed query minus 1.
+constexpr int kResidentWarps = 12;
+
+template <typename Kernel>
+inline int resident_warps_log2(Kernel kernel, long long nb, long long warp_bytes, long long max_bytes) {
+  int best = -1, best_warps = 0, chosen = -1;
+  for (int log_w = 0; log_w <= kMaxWarpsLog2; ++log_w) {
+    if ((warp_bytes << log_w) > max_bytes || (log_w > 0 && (nb >> log_w) < kSpreadBlocks)) break;
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kWarpSize << log_w, static_cast<size_t>(warp_bytes << log_w));
+    if (err != cudaSuccess) return -1 - static_cast<int>(err);
+    const int warps = blocks << log_w;
+    if (warps > best_warps) best = log_w, best_warps = warps;
+    if (warps >= kResidentWarps) chosen = log_w;
+  }
+  return chosen >= 0 ? chosen : best;
 }
 
 }  // namespace slam

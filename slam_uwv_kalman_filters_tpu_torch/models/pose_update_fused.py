@@ -386,7 +386,7 @@ def _pose_update_lanes(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
 def update_model_lanes_cuda(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, mscal=None):
     """K3 on the card, same operands and outputs as
     :func:`update_model_lanes_plain` (the other half of cov_out is left
-    unwritten)."""
+    unwritten): one warp per instance, no scratch."""
     m = FUSED_MODELS[model]
     n, nb = TANGENT_DIM, cov_t.shape[-1]
     dev, dtype = cov_t.device, cov_t.dtype
@@ -403,14 +403,13 @@ def update_model_lanes_cuda(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, msca
             raise ValueError(f"pose_update_model: {key} has shape {tuple(ops[key].shape)}, expected {shape}")
     empty = lambda *s: torch.empty(s, dtype=dtype, device=dev)
     cov_out, mu_out, m2, acc, nu_t = empty(n, n, nb), empty(STORAGE_DIM, nb), empty(1, nb), empty(1, nb), empty(m, nb)
-    c, zs, cw = empty(n, n, nb), empty(2, n, m, nb), empty(m, n, nb)
     cuda_lib.check_lanes("pose_update_model", dev, dtype, cov_out=cov_out, **ops)
     ptr = lambda key: ops[key].data_ptr() if key in ops else None
     cuda_lib.KERNELS["pose_update_model"].launch(
         dtype, MODEL_ID[model], int(aux_t is not None),
         ptr("z_t"), ptr("r_t"), ptr("mu_t"), ptr("cov_t"), ptr("scal"), ptr("mscal"), ptr("aux_t"),
-        cov_out.data_ptr(), mu_out.data_ptr(), m2.data_ptr(), acc.data_ptr(), nu_t.data_ptr(),
-        c.data_ptr(), zs.data_ptr(), cw.data_ptr(), nb, cuda_lib.stream_ptr(dev),
+        cov_out.data_ptr(), mu_out.data_ptr(), m2.data_ptr(), acc.data_ptr(), nu_t.data_ptr(), nb,
+        cuda_lib.stream_ptr(dev),
     )
     return cov_out, mu_out, m2, acc, nu_t
 

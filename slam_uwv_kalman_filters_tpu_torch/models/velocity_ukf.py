@@ -27,6 +27,7 @@ from ..ops import dynamics as dyn
 from ..ops import manifolds as mf
 from ..ops import ukf
 from ..parallel.bank import tree_map
+from ..utils.device import resolve_device
 from ..utils.validation import check_measurement
 
 __all__ = [
@@ -79,6 +80,9 @@ class VelocityUKFState(NamedTuple):
 
 
 def default_process_noise(dtype=torch.float64, device=None) -> torch.Tensor:
+    """The reference's process noise: 1e-4 on the three velocities, 0 on the
+    yaw rate. ``device=None`` builds on the card (``utils/device.py``)."""
+    device = resolve_device(device)
     q = torch.zeros((4, 4), dtype=dtype, device=device)
     q[:3, :3] = 1e-4 * torch.eye(3, dtype=dtype, device=device)
     return q

@@ -45,14 +45,18 @@ _F64 = ctypes.c_double
 class Kernel:
     """One hand-written kernel: C entry points ``<symbol>_<suffix>`` for each
     of ``suffixes`` (``f32``, ``f64``) taking ``argtypes``, the source it
-    lives in and a launch counter."""
+    lives in and a launch counter. A kernel that sizes its blocks at launch
+    also has ``<symbol>_<suffix>_warps`` taking ``warps`` (the sizes), which
+    returns the warps per block it would launch with."""
 
-    def __init__(self, name: str, symbol: str, source: str, argtypes: tuple, suffixes=("f32", "f64")):
+    def __init__(self, name: str, symbol: str, source: str, argtypes: tuple, suffixes=("f32", "f64"),
+                 warps: tuple | None = None):
         self.name = name
         self.symbol = symbol
         self.source = source
         self.argtypes = argtypes
         self.suffixes = suffixes
+        self.warps = warps
         self.launches = 0
 
     def launch(self, dtype: torch.dtype, *args) -> None:
@@ -63,6 +67,14 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: cudaError {rc}")
         self.launches += 1
+
+    def warps_per_block(self, dtype: torch.dtype, *sizes) -> int:
+        """The warps per block a launch at ``sizes`` would use (no launch)."""
+        suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        got = getattr(library(), f"{self.symbol}_{suffix}_warps")(*sizes)
+        if got < 1:
+            raise RuntimeError(f"{self.name}: no block size for {sizes}: cudaError {-got}")
+        return got
 
 
 KERNELS = {
@@ -84,8 +96,9 @@ KERNELS = {
     "pose_update_model": Kernel(
         "pose_update_model", "slam_pose_update_model", "csrc/pose_update.cu",
         # model, banked_aux, z_t, r_t, mu_t, cov_t, scal, mscal, aux_t,
-        # cov_out, mu_out, m2, acc, nu_t, c, zs, cw, nb, stream
-        (_I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        # cov_out, mu_out, m2, acc, nu_t, nb, stream
+        (_I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        warps=(_I32, _I64),  # model, nb
     ),
     "pose_update_tail": Kernel(
         "pose_update_tail", "slam_pose_update_tail", "csrc/pose_update_tail.cu",
@@ -133,8 +146,9 @@ KERNELS = {
     ),
     "cholesky": Kernel(
         "cholesky", "slam_cholesky", "csrc/cholesky.cu",
-        # a_t, out_t, n, nb, stream
-        (_P, _P, _I32, _I64, _P),
+        # a and its (bank, row, col) strides, out and its strides, n, nb, stream
+        (_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _I32, _I64, _P),
+        warps=(_I32, _I64),  # n, nb
     ),
     "fma_probe": Kernel(
         "fma_probe", "slam_fma_probe", "csrc/fma_probe.cu",
@@ -210,6 +224,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{k.symbol}_{suffix}")
             fn.argtypes = list(k.argtypes)
             fn.restype = ctypes.c_int
+            if k.warps:
+                fn = getattr(lib, f"{k.symbol}_{suffix}_warps")
+                fn.argtypes = list(k.warps)
+                fn.restype = ctypes.c_int
     _STATE.update(lib=lib, path=out, log=log, build_seconds=seconds)
     return lib
 

@@ -50,7 +50,7 @@ __all__ = [
     "solve_spd_plain",
 ]
 
-MAX_N = 64  # largest matrix the CUDA cores take (K1, K8: two rows a lane; K12: per-thread local arrays)
+MAX_N = 64  # largest matrix the CUDA cores take (K1, K8, K12: two rows a lane)
 
 
 def equilibrated_cholesky(cov: torch.Tensor):
@@ -114,14 +114,14 @@ def _strides(t: torch.Tensor, axes: tuple) -> tuple:
     return tuple(t.stride(i) for i in axes)
 
 
-def _sigma_deltas_launch(a: torch.Tensor, a_axes: tuple, out: torch.Tensor, out_axes: tuple) -> torch.Tensor:
-    """One K1 launch: ``a`` read through the strides of its (bank, row, col)
-    axes ``a_axes``, the deltas written into ``out`` through ``out_axes``
-    (row = sigma point, col = component)."""
+def _factor_launch(name: str, a: torch.Tensor, a_axes: tuple, out: torch.Tensor, out_axes: tuple) -> torch.Tensor:
+    """One launch of K1 or K12 (``name``): ``a`` read through the strides of
+    its (bank, row, col) axes ``a_axes``, the result written into ``out``
+    through ``out_axes`` (K1: row = sigma point, col = component)."""
     n, nb = a.shape[a_axes[1]], a.shape[a_axes[0]]
-    cuda_lib.check_lanes("sigma_deltas", a.device, a.dtype, out=out)
-    cuda_lib.check_lanes("sigma_deltas", a.device, a.dtype, contiguous=False, a=a)
-    cuda_lib.KERNELS["sigma_deltas"].launch(
+    cuda_lib.check_lanes(name, a.device, a.dtype, out=out)
+    cuda_lib.check_lanes(name, a.device, a.dtype, contiguous=False, a=a)
+    cuda_lib.KERNELS[name].launch(
         a.dtype, a.data_ptr(), *_strides(a, a_axes), out.data_ptr(), *_strides(out, out_axes), n, nb,
         cuda_lib.stream_ptr(a.device),
     )
@@ -135,7 +135,7 @@ def sigma_deltas_lanes_cuda(a_t: torch.Tensor) -> torch.Tensor:
     if a_t.ndim != 3 or a_t.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
         raise ValueError(f"sigma_deltas: need (n, n, N) with n <= {MAX_N}, got {tuple(a_t.shape)}")
     out_t = torch.empty((2 * n + 1, n, nb), dtype=a_t.dtype, device=a_t.device)
-    return _sigma_deltas_launch(a_t, (2, 1, 0), out_t, (2, 0, 1))
+    return _factor_launch("sigma_deltas", a_t, (2, 1, 0), out_t, (2, 0, 1))
 
 
 def sigma_deltas_cuda(cov: torch.Tensor) -> torch.Tensor:
@@ -145,7 +145,7 @@ def sigma_deltas_cuda(cov: torch.Tensor) -> torch.Tensor:
     if cov.ndim != 3 or cov.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
         raise ValueError(f"sigma_deltas_cuda: need (N, n, n) with n <= {MAX_N}, got {tuple(cov.shape)}")
     out = torch.empty((nb, 2 * n + 1, n), dtype=cov.dtype, device=cov.device)
-    return _sigma_deltas_launch(cov, (0, 1, 2), out, (0, 1, 2))
+    return _factor_launch("sigma_deltas", cov, (0, 1, 2), out, (0, 1, 2))
 
 
 def sigma_deltas_lanes(a_t: torch.Tensor) -> torch.Tensor:
@@ -269,27 +269,26 @@ def cholesky_lanes_plain(a_t: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_lanes_cuda(a_t: torch.Tensor) -> torch.Tensor:
-    """K12 on the card in its own layout: (n, n, N) SPD matrices in (col,
-    row, N) order, lower half read → (n, n, N) lower factors L =
-    D·chol(D⁻¹AD⁻¹) with explicit zeros above the diagonal, one thread per
+    """K12 on the card in the lanes layout: (n, n, N) SPD matrices in (col,
+    row, N) order, lower half read, any strides → (n, n, N) lower factors L =
+    D·chol(D⁻¹AD⁻¹) with explicit zeros above the diagonal, one warp per
     matrix; a matrix whose factorization fails comes back all NaN."""
     n, nb = a_t.shape[0], a_t.shape[-1]
     if a_t.ndim != 3 or a_t.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
         raise ValueError(f"cholesky: need (n, n, N) with n <= {MAX_N}, got {tuple(a_t.shape)}")
-    out_t = torch.empty_like(a_t)
-    cuda_lib.check_lanes("cholesky", a_t.device, a_t.dtype, a_t=a_t, out_t=out_t)
-    cuda_lib.KERNELS["cholesky"].launch(
-        a_t.dtype, a_t.data_ptr(), out_t.data_ptr(), n, nb, cuda_lib.stream_ptr(a_t.device)
-    )
-    return out_t
+    out_t = torch.empty((n, n, nb), dtype=a_t.dtype, device=a_t.device)
+    return _factor_launch("cholesky", a_t, (2, 1, 0), out_t, (2, 1, 0))
 
 
 def cholesky_cuda(cov: torch.Tensor) -> torch.Tensor:
-    """K12 on the card: (N, n, n) → (N, n, n); the layout transposes are
-    plain PyTorch copies around the kernel."""
-    if cov.ndim != 3 or cov.shape[1] != cov.shape[2]:
-        raise ValueError(f"cholesky_cuda: need (N, n, n), got {tuple(cov.shape)}")
-    return cholesky_lanes_cuda(cov.permute(2, 1, 0).contiguous()).permute(2, 1, 0)
+    """K12 on the card in the bank-first layout: (N, n, n), lower triangle
+    read, any strides → (N, n, n), one warp per matrix, read and written in
+    place (no layout copy)."""
+    nb, n = cov.shape[0], cov.shape[-1]
+    if cov.ndim != 3 or cov.shape[1] != n or not 1 <= n <= MAX_N or nb < 1:
+        raise ValueError(f"cholesky_cuda: need (N, n, n) with n <= {MAX_N}, got {tuple(cov.shape)}")
+    out = torch.empty((nb, n, n), dtype=cov.dtype, device=cov.device)
+    return _factor_launch("cholesky", cov, (0, 1, 2), out, (0, 1, 2))
 
 
 def cholesky_banked(cov: torch.Tensor) -> torch.Tensor:
