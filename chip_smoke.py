@@ -56,6 +56,8 @@ csrc`` and then, in order:
 12. measures the online latency of bench.py's estimator pattern: one K5
    [acceleration, velocity] step per tick with a host-fresh DVL z copied to
    the card and a one-element readback, 400 ticks at bank 1 and 128;
+   then times K2 (both modes) at bank 1 and 256 and K5 on that chain at bank
+   1 and 128 on the card alone, each held to its plain version first;
 13. runs the online estimator of examples/online_estimator.py --fused-step
    on the port (bank 128, 100 Hz, 10 s; events through the port's
    StreamPacker, forward-filled gyro) and holds its velocity error to the
@@ -135,9 +137,9 @@ csrc`` and then, in order:
 A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
 calls held behind a spin kernel, so the host's time to enqueue each is
 hidden); the ``ptxas`` lines of the warp-per-matrix and warp-per-instance
-kernels K1, K3, K8 and K12 (registers, stack frame, spills) are printed on
-their own, and the warps a block K3 (per model) and K12 choose at the main
-paths' banks.
+kernels K1, K2, K3, K5, K8 and K12 (registers, stack frame, spills) are
+printed on their own, and the warps a block K3 (per model) and K12 choose at
+the main paths' banks, and K2 (both modes) and K5 with the warps an SM keeps.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
@@ -215,7 +217,8 @@ INDIRECT_BANK = 65536
 SMOOTHER_BANK = 256
 # the warp-per-matrix and warp-per-instance kernels, whose ptxas lines are
 # printed on their own
-WARP_KERNELS = ("sigma_deltas_kernel", "solve_spd_kernel", "cholesky_kernel", "pose_update_model_kernel")
+WARP_KERNELS = ("sigma_deltas_kernel", "solve_spd_kernel", "cholesky_kernel", "pose_update_model_kernel",
+                "pose_predict_kernel", "pose_step_kernel")
 # the visual marker of tests/test_full_mission.py: four corners of a 0.3 m
 # square, a camera whose optical axis is body +x, a 1e-6·I pose prior
 MARKER_CORNERS = ((0.15, 0.15, 0.0), (-0.15, 0.15, 0.0), (-0.15, -0.15, 0.0), (0.15, -0.15, 0.0))
@@ -227,10 +230,18 @@ def log(msg: str) -> None:
 
 
 def _warps(name: str, dtype, *sizes) -> int:
-    """Warps a block kernel ``name`` (K3, K12) launches with at ``sizes``."""
+    """Warps a block kernel ``name`` (K2, K3, K5, K12) launches with at ``sizes``."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
     return cuda_lib.KERNELS[name].warps_per_block(dtype, *sizes)
+
+
+def _resident(name: str, dtype, *sizes) -> int:
+    """Warps an SM keeps resident at that block size (K2, K5: the occupancy
+    calculator's answer)."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.KERNELS[name].resident_warps(dtype, *sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -1484,6 +1495,40 @@ def phase_online_latency(device, ticks: int = 400):
     return out, launches
 
 
+def phase_k2_k5_alone(device) -> dict:
+    """K2 (both modes) at bank 1 and 256 and K5 (the online chain
+    [acceleration, velocity]) at bank 1 and 128 on the card alone
+    (:func:`_device_ms`), float32, on perturbed mission states (a banked
+    parameter draw for the full mode), each first held to its plain version
+    on the same operands. Returns {"<kernel>_bank_<N>": ms}."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+
+    gen = torch.Generator(device=device).manual_seed(71)
+    out = {}
+    for nb in (1, 128, 256):
+        bs, params, meas = mission_setup(nb, torch.float32, device, gen, spread=1.0)
+        ls = pf.to_lanes(bs)
+        calls = {}
+        if nb != 128:
+            bo = pf.banked_predict_operands(banked_params(params, nb, torch.float32, every_operand=True), DT,
+                                            torch.float32)
+            calls["pose_predict"] = (ls.cov_t, ls.mu_t, ls.rr_t, *pf._predict_operands_shared(params, DT, torch.float32))
+            calls["pose_predict_full"] = (ls.cov_t, ls.mu_t, ls.rr_t, bo.coeff, bo.offs, bo.q0m_t, bo.scal, bo.aux_t)
+        if nb != 256:
+            z_ts = [meas[k][0].T.contiguous() for k in ("acc", "dvl")]
+            r_ts = [meas[k][1][..., None].expand(3, 3, nb).contiguous() for k in ("acc", "dvl")]
+            s6 = torch.cat([puf._scal_block(None, (), torch.float32, device).T] * 2).contiguous()
+            calls["pose_step"] = (("acceleration", "velocity"), ls.cov_t, ls.mu_t, ls.rr_t,
+                                  *pf._predict_operands_shared(params, DT, torch.float32), z_ts, r_ts, s6)
+        for name, args in calls.items():
+            compare(name, f"alone bank={nb}", args)
+            out[f"{name}_bank_{nb}"] = _device_ms(lambda: _pair(name)[0](*args))
+    log("K2 and K5 on the card alone, float32: "
+        + " ".join(f"{k}={'not measured' if v is None else f'{v:.4f} ms'}" for k, v in out.items()))
+    return out
+
+
 def phase_online_estimator(device, nb: int = 128, seconds: int = 10, rate: float = 100.0):
     """examples/online_estimator.py --fused-step on the port: a seeded
     irregular, shuffled event stream (gyro 100 Hz, DVL 10 Hz, pressure 20 Hz)
@@ -2599,6 +2644,10 @@ def main() -> int:
             f"{_warps('cholesky', dtype, 53, args.bank)}; K3 at bank {args.bank} / {SMOOTHER_BANK}: "
             + ", ".join(f"{model} {_warps('pose_update_model', dtype, i, args.bank)} / "
                         f"{_warps('pose_update_model', dtype, i, SMOOTHER_BANK)}" for model, i in MODEL_ID.items()))
+        log(f"warps a block / resident an SM, {str(dtype).split('.')[-1]}: "
+            + "; ".join(f"{name} " + ", ".join(f"bank {nb} {_warps(name, dtype, nb)} / {_resident(name, dtype, nb)}"
+                                               for nb in (args.bank, 256, 128, 1))
+                        for name in ("pose_predict", "pose_predict_full", "pose_step")))
 
     phase_checks(device)
     phase_mean_accuracy(device)
@@ -2665,6 +2714,7 @@ def main() -> int:
     del captured
     torch.cuda.empty_cache()
     latency, latency_launches = phase_online_latency(device)
+    k2_k5_alone = phase_k2_k5_alone(device)
     estimator, estimator_launches = phase_online_estimator(device, seconds=args.online_seconds)
     captured, counts = {}, {}
     velocity, rate_velocity, mission_counts = phase_velocity_bank(device, args.velocity_bank, captured, counts)
@@ -2756,6 +2806,7 @@ def main() -> int:
     ], "mission_ticks_per_s": rate, "banked_mission_ticks_per_s": rate_banked,
         "stepped_mission_ticks_per_s": rate_stepped, "bank": args.bank,
         "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
+        "k2_k5_alone_ms": k2_k5_alone,
         "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,

@@ -1,5 +1,6 @@
 // Shared device code of the PoseUKF kernels: typed math, the quaternion
-// helpers, the equilibrated Cholesky core and the update tail of K4 and K5.
+// helpers, the one-thread equilibrated Cholesky core (K11) and the update
+// tail of K4.
 //
 // Layout: every per-instance array is bank-last, (..., nb), one thread per
 // instance. A thread offsets its base pointers by its instance b, and element
@@ -45,6 +46,12 @@ __device__ __forceinline__ double d_tiny(double) { return 2.2250738585072014e-30
 __device__ __forceinline__ float d_nan(float) { return __int_as_float(0x7fc00000); }
 __device__ __forceinline__ double d_nan(double) { return __longlong_as_double(0x7ff8000000000000LL); }
 
+// rounding spelled out where a kernel must fuse (or not) as another build did
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 template <typename T>
 __device__ __forceinline__ T d_max(T a, T b) { return a > b ? a : b; }
 
@@ -81,9 +88,11 @@ __device__ __forceinline__ Quat<T> qexp(T vx, T vy, T vz) {
   return {d_cos(T(0.5) * theta), sinc * vx, sinc * vy, sinc * vz};
 }
 
-// quaternion -> rotation vector (hemisphere w >= 0, Taylor-guarded)
+// quaternion -> rotation vector (hemisphere w >= 0, Taylor-guarded), as
+// scale·(qx, qy, qz): qlog_parts stops before the three products, for a
+// caller that fuses each into a sum (K2's Karcher mean)
 template <typename T>
-__device__ __forceinline__ void qlog(Quat<T> q, T& rx, T& ry, T& rz) {
+__device__ __forceinline__ void qlog_parts(Quat<T> q, T& scale, T& qx, T& qy, T& qz) {
   if (q.w < T(0)) {
     q.w = -q.w; q.x = -q.x; q.y = -q.y; q.z = -q.z;
   }
@@ -93,8 +102,15 @@ __device__ __forceinline__ void qlog(Quat<T> q, T& rx, T& ry, T& rz) {
   const T theta = T(2) * d_atan2(n, w);
   const bool small = n2 < T(1e-24);
   const T safe_n = small ? T(1) : n;
-  const T scale = small ? T(2) / d_max(w, T(1e-6)) : theta / safe_n;
-  rx = scale * q.x; ry = scale * q.y; rz = scale * q.z;
+  scale = small ? T(2) / d_max(w, T(1e-6)) : theta / safe_n;
+  qx = q.x; qy = q.y; qz = q.z;
+}
+
+template <typename T>
+__device__ __forceinline__ void qlog(const Quat<T>& q, T& rx, T& ry, T& rz) {
+  T scale, qx, qy, qz;
+  qlog_parts(q, scale, qx, qy, qz);
+  rx = scale * qx; ry = scale * qy; rz = scale * qz;
 }
 
 template <typename T>
@@ -125,9 +141,9 @@ __device__ __forceinline__ void rot_fwd(const Quat<T>& q, T vx, T vy, T vz, T& o
 }
 
 // ---- the equilibrated Cholesky core ---------------------------------------
-// Replaces the TPU core ops/kernels.py::equilibrated_sigma_columns for K2 and
-// K5 (pose_bodies.cuh) and K11 (pose_markers.cu). K1, K3, K8 and K12 run the
-// same function one warp per matrix in shared memory (warp_factor.cuh).
+// Replaces the TPU core ops/kernels.py::equilibrated_sigma_columns for K11
+// (pose_markers.cu). K1, K2, K3, K5, K8 and K12 run the same function one
+// warp per matrix in shared memory (warp_factor.cuh).
 //
 // One thread factors one instance: L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag
 // A, tiny)). `a` is the instance's (n, n) input in (col, row) order and only
@@ -180,7 +196,7 @@ struct NoEmit {
   __device__ void operator()(int, T) const {}
 };
 
-// ---- the update tail shared by K4 and K5 (K3's first design) ---------------
+// ---- the update tail of K4 (and of K3's and K5's first designs) -------------
 // Replaces the TPU tail models/pose_update_fused.py::_update_tail_from_sc.
 //
 // From the innovation covariance S (M x M, registers), the cross-covariance C

@@ -32,8 +32,8 @@
 // the downdate reads the prior a second time the same way rather than keep
 // a second tile that would halve the warps resident; it writes only the
 // valid half. The warps per block are chosen from the occupancy of the
-// model's tile (resident_warps_log2). K5 (pose_step.cu) keeps the one-thread
-// body.
+// model's tile (resident_warps_log2). K5 (pose_step.cu) runs the same block
+// body (warp_update.cuh::block_update_model) after its predict.
 //
 // Operands (bank-last): z (m, nb), R (m, m, nb), mu (54, nb), cov (53, 53, nb)
 // half-valid, scal (6), mscal (119) or null, aux (5, nb) or null.
@@ -51,52 +51,8 @@ pose_update_model_kernel(int model, int banked_aux, const T* __restrict__ z, con
                          const T* __restrict__ msc, const T* __restrict__ aux_b, T* __restrict__ cov_out,
                          T* __restrict__ mu_out, T* __restrict__ m2_out, T* __restrict__ acc_out,
                          T* __restrict__ nu_out, long long nb, int log_w) {
-  constexpr int N = kPoseN;
-  const int M = model_dim(model);
-  const UpdateTile t(M);
-  T* const base = warp_smem<T>();
-  const long long b0 = static_cast<long long>(blockIdx.x) << log_w;
-  const int w = threadIdx.x / kWarpSize;
-  // bank-last (col, row, nb) matrices and (row, nb) vectors; a vector's
-  // column stride only steers block_walk's lanes along its rows
-  const Strides gc{1, nb, N * nb}, gv{1, nb, kPoseS * nb};
-  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
-    base[i * t.size + c * t.ld + r] = cov[(b0 + i) + r * nb + c * (N * nb)];
-  });
-  block_walk(gv, kPoseS, 1, false, log_w, b0, nb, [&](int i, int r, int) {
-    base[i * t.size + t.mean + r] = mu[(b0 + i) + r * nb];
-  });
-  __syncthreads();
-  if (b0 + w < nb) {
-    const long long b = b0 + w;
-    T aux[5];
-    for (int i = 0; i < 5; ++i) aux[i] = banked_aux ? aux_b[b + i * nb] : scal[1 + i];
-    warp_update_model<T>(base + w * t.size, t, model, aux, msc, scal[0], z + b, rmat + b, nb);
-  }
-  __syncthreads();
-  // the downdate cov − W·Wᵀ on the valid half where accepted, else the prior
-  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
-    const T* s = base + i * t.size;
-    const long long e = (b0 + i) + r * nb + c * (N * nb);
-    const T prior = cov[e];
-    if (s[t.acc] != T(0)) {
-      T acc = T(0);
-      for (int k = 0; k < M; ++k) acc += s[t.cw + k * N + c] * s[t.cw + k * N + r];
-      cov_out[e] = prior - acc;
-    } else {
-      cov_out[e] = prior;
-    }
-  });
-  block_walk(gv, kPoseS, 1, false, log_w, b0, nb, [&](int i, int r, int) {
-    mu_out[(b0 + i) + r * nb] = base[i * t.size + t.mean + r];
-  });
-  block_walk(gv, M, 1, false, log_w, b0, nb, [&](int i, int r, int) {
-    nu_out[(b0 + i) + r * nb] = base[i * t.size + t.nu + r];
-  });
-  block_walk(gv, 1, 1, false, log_w, b0, nb, [&](int i, int, int) {
-    m2_out[b0 + i] = base[i * t.size + t.m2];
-    acc_out[b0 + i] = base[i * t.size + t.acc];
-  });
+  block_update_model<T>(model, banked_aux, z, rmat, mu, cov, scal, msc, aux_b, cov_out, mu_out, m2_out, acc_out,
+                        nu_out, nb, log_w, UpdateTile(model_dim(model)).size);
 }
 
 // The launch's warps per block as log2 (cached per model), or a negated

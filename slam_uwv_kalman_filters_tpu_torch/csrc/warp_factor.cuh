@@ -1,8 +1,9 @@
-// The warp-per-matrix equilibrated Cholesky core of K1, K3, K8 and K12.
+// The warp-per-matrix equilibrated Cholesky core of K1, K2, K3, K5, K8 and
+// K12.
 //
-// Replaces, for K1, K3, K8 and K12, the TPU core ops/kernels.py::
+// Replaces, for K1, K2, K3, K5, K8 and K12, the TPU core ops/kernels.py::
 // equilibrated_sigma_columns (and, for K12, the factor of _cholesky_lanes_
-// kernel), as common.cuh's equilibrated_core does for K2, K5 and K11. The
+// kernel), as common.cuh's equilibrated_core does for K11. The
 // function and the operation order are equilibrated_core's:
 // L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag A, tiny)), only the lower half
 // (row >= col) of A read; right-looking, column j scaled by the reciprocal of
@@ -169,16 +170,18 @@ inline int warps_log2(long long nb, long long tile_bytes, long long max_bytes) {
 // log2 of the warps per block for a kernel whose warps take `warp_bytes`
 // each (block-wide extras included): among the block sizes the bank spreads
 // over kSpreadBlocks blocks (one warp always), the largest that keeps
-// kResidentWarps warps resident on an SM, or else the one that keeps the
+// kResidentWarps warps resident on an SM, or else the widest that keeps the
 // most (the occupancy calculator counts shared memory and registers). More
-// warps a block coalesce more of a bank-last walk; more warps an SM hide
-// more of each warp's latency. -1 if one warp does not fit, or the negated
-// cudaError_t of a failed query minus 1.
+// warps a block coalesce more of a bank-last walk; more warps an SM hide more
+// of each warp's latency. -1 if one warp does not fit, or the negated
+// cudaError_t of a failed query minus 1; `resident`, where given, receives
+// the warps an SM keeps at the chosen size.
 constexpr int kResidentWarps = 12;
 
 template <typename Kernel>
-inline int resident_warps_log2(Kernel kernel, long long nb, long long warp_bytes, long long max_bytes) {
-  int best = -1, best_warps = 0, chosen = -1;
+inline int resident_warps_log2(Kernel kernel, long long nb, long long warp_bytes, long long max_bytes,
+                               int* resident = nullptr) {
+  int best = -1, best_warps = 0, chosen = -1, chosen_warps = 0;
   for (int log_w = 0; log_w <= kMaxWarpsLog2; ++log_w) {
     if ((warp_bytes << log_w) > max_bytes || (log_w > 0 && (nb >> log_w) < kSpreadBlocks)) break;
     int blocks = 0;
@@ -186,9 +189,10 @@ inline int resident_warps_log2(Kernel kernel, long long nb, long long warp_bytes
         &blocks, kernel, kWarpSize << log_w, static_cast<size_t>(warp_bytes << log_w));
     if (err != cudaSuccess) return -1 - static_cast<int>(err);
     const int warps = blocks << log_w;
-    if (warps > best_warps) best = log_w, best_warps = warps;
-    if (warps >= kResidentWarps) chosen = log_w;
+    if (warps > 0 && warps >= best_warps) best = log_w, best_warps = warps;
+    if (warps >= kResidentWarps) chosen = log_w, chosen_warps = warps;
   }
+  if (resident) *resident = chosen >= 0 ? chosen_warps : best_warps;
   return chosen >= 0 ? chosen : best;
 }
 

@@ -4,10 +4,10 @@
 // _make_update_model_kernel (launched by _pose_update_model_lanes): the kept
 // equilibrated factor, h on the 107 sigma points, S, C, the m x m gain, the
 // gate, the correction and the downdate. Its function and its results are
-// those of the one-thread body pose_bodies.cuh::update_model_body (which K5
-// still runs), bit for bit: every output is made by one lane, in the
-// one-thread body's order and with its expressions; the lanes share out
-// independent outputs only.
+// those of its first design, one thread per instance, bit for bit: every
+// output is made by one lane, in the one-thread body's order and with its
+// expressions; the lanes share out independent outputs only. K5 runs it too,
+// after its predict (block_update_model).
 //
 // What bounds it on Hopper, and what the design does about it. The function
 // is memory-bound (the valid half of the covariance read and written, 0.47
@@ -208,6 +208,70 @@ __device__ void warp_update_model(T* s, const UpdateTile& t, int model, const T*
   m[lane] = v0;
   if (r1 < kPoseS) m[r1] = v1;
   __syncwarp();
+}
+
+// The block's W = 2^log_w instances b0 + w, one warp each, tiles `stride`
+// (>= UpdateTile(m).size) apart: the valid covariance halves and the means
+// loaded bank-minor (block_walk), warp_update_model, then the downdate
+// cov − W·Wᵀ on the valid half where accepted (else the prior), the mean, ν,
+// the NIS and the gate written back, bank-minor. The downdate reads the prior
+// a second time rather than keep a second tile, and each entry is read and
+// written by one thread, so cov/cov_out and mu/mu_out may be the same arrays
+// (K5 updates in place). The caller synchronizes the block before a call
+// that reuses the tiles or reads what the block wrote.
+template <typename T>
+__device__ __forceinline__ void block_update_model(int model, int banked_aux, const T* __restrict__ z,
+                                                   const T* __restrict__ rmat, const T* mu, const T* cov,
+                                                   const T* __restrict__ scal, const T* __restrict__ msc,
+                                                   const T* __restrict__ aux_b, T* cov_out, T* mu_out,
+                                                   T* __restrict__ m2_out, T* __restrict__ acc_out,
+                                                   T* __restrict__ nu_out, long long nb, int log_w, int stride) {
+  constexpr int N = kPoseN;
+  const int M = model_dim(model);
+  const UpdateTile t(M);
+  T* const base = warp_smem<T>();
+  const long long b0 = static_cast<long long>(blockIdx.x) << log_w;
+  const int w = threadIdx.x / kWarpSize;
+  // bank-last (col, row, nb) matrices and (row, nb) vectors; a vector's
+  // column stride only steers block_walk's lanes along its rows
+  const Strides gc{1, nb, N * nb}, gv{1, nb, kPoseS * nb};
+  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
+    base[i * stride + c * t.ld + r] = cov[(b0 + i) + r * nb + c * (N * nb)];
+  });
+  block_walk(gv, kPoseS, 1, false, log_w, b0, nb, [&](int i, int r, int) {
+    base[i * stride + t.mean + r] = mu[(b0 + i) + r * nb];
+  });
+  __syncthreads();
+  if (b0 + w < nb) {
+    const long long b = b0 + w;
+    T aux[5];
+    for (int i = 0; i < 5; ++i) aux[i] = banked_aux ? aux_b[b + i * nb] : scal[1 + i];
+    warp_update_model<T>(base + w * stride, t, model, aux, msc, scal[0], z + b, rmat + b, nb);
+  }
+  __syncthreads();
+  // the downdate cov − W·Wᵀ on the valid half where accepted, else the prior
+  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
+    const T* s = base + i * stride;
+    const long long e = (b0 + i) + r * nb + c * (N * nb);
+    const T prior = cov[e];
+    if (s[t.acc] != T(0)) {
+      T acc = T(0);
+      for (int k = 0; k < M; ++k) acc += s[t.cw + k * N + c] * s[t.cw + k * N + r];
+      cov_out[e] = prior - acc;
+    } else {
+      cov_out[e] = prior;
+    }
+  });
+  block_walk(gv, kPoseS, 1, false, log_w, b0, nb, [&](int i, int r, int) {
+    mu_out[(b0 + i) + r * nb] = base[i * stride + t.mean + r];
+  });
+  block_walk(gv, M, 1, false, log_w, b0, nb, [&](int i, int r, int) {
+    nu_out[(b0 + i) + r * nb] = base[i * stride + t.nu + r];
+  });
+  block_walk(gv, 1, 1, false, log_w, b0, nb, [&](int i, int, int) {
+    m2_out[b0 + i] = base[i * stride + t.m2];
+    acc_out[b0 + i] = base[i * stride + t.acc];
+  });
 }
 
 }  // namespace slam

@@ -312,15 +312,12 @@ def predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t=None):
             raise ValueError(f"pose_predict: {key} has shape {tuple(ops[key].shape)}, expected {shape}")
     cov_out = torch.empty((n, n, nb), dtype=dtype, device=dev)
     mu_out = torch.empty((STORAGE_DIM, nb), dtype=dtype, device=dev)
-    y = torch.empty((NSIG, STORAGE_DIM, nb), dtype=dtype, device=dev)
-    c = torch.empty((n, n, nb), dtype=dtype, device=dev)
     cuda_lib.check_lanes("pose_predict", dev, dtype, cov_out=cov_out, mu_out=mu_out, **ops)
     ptrs = [t.data_ptr() for t in (cov_t, mu_t, rr_t, coeff, offs, q0m, scal)]
     if full:
         ptrs.append(aux_t.data_ptr())
     cuda_lib.KERNELS["pose_predict_full" if full else "pose_predict"].launch(
-        dtype, *ptrs, cov_out.data_ptr(), mu_out.data_ptr(), y.data_ptr(), c.data_ptr(), nb,
-        cuda_lib.stream_ptr(dev),
+        dtype, *ptrs, cov_out.data_ptr(), mu_out.data_ptr(), nb, cuda_lib.stream_ptr(dev),
     )
     return cov_out, mu_out
 

@@ -676,8 +676,6 @@ def pose_step_lanes_cuda(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts
             raise ValueError(f"pose_step: {key} has shape {tuple(ops[key].shape)}, expected {shape}")
     empty = lambda *s: torch.empty(s, dtype=dtype, device=dev)
     cov_out, mu_out = empty(n, n, nb), empty(STORAGE_DIM, nb)
-    y, c = empty(NSIG, STORAGE_DIM, nb), empty(n, n, nb)
-    zs, cw = empty(2, n, max(ms), nb), empty(max(ms), n, nb)
     infos = [(empty(1, nb), empty(1, nb), empty(m, nb)) for m in ms]
     cuda_lib.check_lanes("pose_step", dev, dtype, cov_out=cov_out, **ops)
     ptrs = lambda ts: cuda_lib.host_array(ctypes.c_void_p, [t.data_ptr() for t in ts])
@@ -689,8 +687,8 @@ def pose_step_lanes_cuda(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts
     models_a, z_a, r_a, m2_a, acc_a, nu_a = (ctypes.addressof(a) for a in chain)
     cuda_lib.KERNELS["pose_step"].launch(
         dtype, *(t.data_ptr() for t in (cov_t, mu_t, rr_t, coeff, offs, q0m, scal)), len(models),
-        models_a, z_a, r_a, scal6.data_ptr(), m2_a, acc_a, nu_a, cov_out.data_ptr(), mu_out.data_ptr(),
-        y.data_ptr(), c.data_ptr(), zs.data_ptr(), cw.data_ptr(), nb, cuda_lib.stream_ptr(dev),
+        models_a, z_a, r_a, scal6.data_ptr(), m2_a, acc_a, nu_a, cov_out.data_ptr(), mu_out.data_ptr(), nb,
+        cuda_lib.stream_ptr(dev),
     )
     return cov_out, mu_out, infos
 

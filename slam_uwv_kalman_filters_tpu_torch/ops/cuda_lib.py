@@ -47,16 +47,19 @@ class Kernel:
     of ``suffixes`` (``f32``, ``f64``) taking ``argtypes``, the source it
     lives in and a launch counter. A kernel that sizes its blocks at launch
     also has ``<symbol>_<suffix>_warps`` taking ``warps`` (the sizes), which
-    returns the warps per block it would launch with."""
+    returns the warps per block it would launch with, and one that sizes them
+    by occupancy (``resident``) also ``<symbol>_<suffix>_resident``, the
+    warps an SM keeps at that size."""
 
     def __init__(self, name: str, symbol: str, source: str, argtypes: tuple, suffixes=("f32", "f64"),
-                 warps: tuple | None = None):
+                 warps: tuple | None = None, resident: bool = False):
         self.name = name
         self.symbol = symbol
         self.source = source
         self.argtypes = argtypes
         self.suffixes = suffixes
         self.warps = warps
+        self.resident = resident
         self.launches = 0
 
     def launch(self, dtype: torch.dtype, *args) -> None:
@@ -76,6 +79,17 @@ class Kernel:
             raise RuntimeError(f"{self.name}: no block size for {sizes}: cudaError {-got}")
         return got
 
+    def resident_warps(self, dtype: torch.dtype, *sizes) -> int:
+        """The warps an SM keeps resident at the block size of a launch at
+        ``sizes`` (the occupancy calculator's answer; no launch)."""
+        if not self.resident:
+            raise TypeError(f"{self.name} has no resident-warps entry")
+        suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        got = getattr(library(), f"{self.symbol}_{suffix}_resident")(*sizes)
+        if got < 1:
+            raise RuntimeError(f"{self.name}: no block size for {sizes}: cudaError {-got}")
+        return got
+
 
 KERNELS = {
     "sigma_deltas": Kernel(
@@ -85,13 +99,15 @@ KERNELS = {
     ),
     "pose_predict": Kernel(
         "pose_predict", "slam_pose_predict", "csrc/pose_predict.cu",
-        # cov_t, mu_t, rr_t, coeff, offs, q0m, scal, cov_out, mu_out, y, c, nb, stream
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        # cov_t, mu_t, rr_t, coeff, offs, q0m, scal, cov_out, mu_out, nb, stream
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb
     ),
     "pose_predict_full": Kernel(
         "pose_predict_full", "slam_pose_predict_full", "csrc/pose_predict.cu",
-        # cov_t, mu_t, rr_t, coeff, offs, q0m_t, scal, aux_t, cov_out, mu_out, y, c, nb, stream
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        # cov_t, mu_t, rr_t, coeff, offs, q0m_t, scal, aux_t, cov_out, mu_out, nb, stream
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb
     ),
     "pose_update_model": Kernel(
         "pose_update_model", "slam_pose_update_model", "csrc/pose_update.cu",
@@ -108,9 +124,9 @@ KERNELS = {
     "pose_step": Kernel(
         "pose_step", "slam_pose_step", "csrc/pose_step.cu",
         # cov_t, mu_t, rr_t, coeff, offs, q0m, scal, n_upd, models*, z**, r**, scal6,
-        # m2**, acc**, nu**, cov_out, mu_out, y, c, zs, cw, nb, stream
-        (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I64, _P),
+        # m2**, acc**, nu**, cov_out, mu_out, nb, stream
+        (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb
     ),
     "velocity_step": Kernel(
         "velocity_step", "slam_velocity_step", "csrc/velocity_step.cu",
@@ -224,8 +240,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{k.symbol}_{suffix}")
             fn.argtypes = list(k.argtypes)
             fn.restype = ctypes.c_int
-            if k.warps:
-                fn = getattr(lib, f"{k.symbol}_{suffix}_warps")
+            for entry in ["warps"] * bool(k.warps) + ["resident"] * k.resident:
+                fn = getattr(lib, f"{k.symbol}_{suffix}_{entry}")
                 fn.argtypes = list(k.warps)
                 fn.restype = ctypes.c_int
     _STATE.update(lib=lib, path=out, log=log, build_seconds=seconds)

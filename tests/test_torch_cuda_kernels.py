@@ -12,11 +12,12 @@ Tolerances are normalized errors (see each test): float64 within 1e-9,
 float32 within 2e-3 (107-point sums and a 53-column factorization rounded in
 another order than PyTorch's library calls).
 
-:func:`kernel_digests` hashes the outputs of K2 (shared mode) and K3 on fixed
-operands; :data:`DIGESTS` holds what the kernels gave before K2 gained its
-full mode and K3's update tail moved into ``csrc/common.cuh`` (the build of
-that tree, NVIDIA H100 80GB HBM3), and the test holds the current build to it
-bit for bit; :func:`velocity_digests` and :data:`VELOCITY_DIGESTS` do the
+:func:`kernel_digests` hashes the outputs of K2 (both modes), K3 and K5 on
+fixed operands; :data:`DIGESTS` holds what K2's shared mode and K3 gave
+before K2 gained its full mode and K3's update tail moved into
+``csrc/common.cuh``, and what K2's full mode and K5 gave before both moved to
+one warp per instance (the builds of those trees, NVIDIA H100 80GB HBM3),
+and the test holds the current build to them bit for bit; :func:`velocity_digests` and :data:`VELOCITY_DIGESTS` do the
 same for K6 across the move of its Crout factor, substitutions and Kalman
 tail into ``csrc/small_ukf.cuh``. The module imports at its top only what
 those trees also had (later modules inside the tests), so the same functions
@@ -274,11 +275,15 @@ def test_float32_update_tail_as_accurate_as_plain(device):
         assert (err_k <= 2 * err_p + 2 * ulp * ref.abs().amax(-1)).all(), (field, err_k, err_p)
 
 
-def kernel_digests(device) -> dict:
-    """sha256 (first 16 hex digits) of K2's shared-mode outputs and K3's
+def kernel_digests(device, outputs: dict | None = None) -> dict:
+    """sha256 (first 16 hex digits) of K2's outputs in both modes, K3's
     outputs — valid covariance half, mean, NIS, gate, innovation — for all
-    seven models in both aux forms, float32 and float64, on fixed operands
-    made from a seeded numpy Generator."""
+    seven models in both aux forms, and K5's on two gated chains, float32 and
+    float64, on fixed operands made from a seeded numpy Generator (the draws
+    of the full mode's per-instance operands and of the chains come after
+    the others, so adding them moved no earlier operand). ``outputs``, when
+    given, also receives each key's output tensors on the CPU, to locate a
+    drift entry by entry."""
     f64 = torch.float64
     state, params = pukf.init_from_pose(
         torch.zeros(3, dtype=f64), torch.eye(3, dtype=f64) * 0.01,
@@ -300,6 +305,13 @@ def kernel_digests(device) -> dict:
     rr = 0.01 * rng.normal(size=(3, NB))
     zs = {model: rng.normal(size=(m, NB)) for model, m in puf.FUSED_MODELS.items()}
     auxb = 0.01 * rng.normal(size=(5, NB))
+    # full mode: every per-instance operand moved (process noise, current
+    # scale, time constants, rest points, projection anchor)
+    draws = {key: 1.0 + 0.2 * np.clip(rng.normal(size=(NB, *shape)), -3, 3)
+             for key, shape in (("noise", ()), ("wv", ()), ("gyro", ()), ("quad", ()), ("inertia", (3, 3)),
+                                ("lat0", ()))}
+    chains = (("acceleration", "velocity"), ("acceleration", "velocity", "pressure", "water_velocity"))
+    gates = {"acceleration": 7.815, "velocity": 7.815, "pressure": None, "water_velocity": 5.991}
     valid = torch.triu(torch.ones(n, n, dtype=torch.bool)).to(device)
     out = {}
     for dtype in (torch.float32, torch.float64):
@@ -309,14 +321,47 @@ def kernel_digests(device) -> dict:
 
         def digest(tensors):
             h = hashlib.sha256()
+            kept = []
             for x in tensors:
                 x = x[valid] if x.ndim == 3 and x.shape[:2] == (n, n) else x
-                h.update(x.detach().cpu().numpy().tobytes())
-            return h.hexdigest()[:16]
+                kept.append(x.detach().cpu())
+                h.update(kept[-1].numpy().tobytes())
+            return h.hexdigest()[:16], kept
+
+        def record(key, tensors):
+            out[key], kept = digest(tensors)
+            if outputs is not None:
+                outputs[key] = kept
 
         name = str(dtype).split(".")[-1]
         ops = pf._predict_operands_shared(p, 0.01, dtype)
-        out[f"pose_predict,{name}"] = digest(pf.predict_lanes_cuda(cov_t, mu_t, rr_t, *ops))
+        record(f"pose_predict,{name}", pf.predict_lanes_cuda(cov_t, mu_t, rr_t, *ops))
+        d = {key: torch.as_tensor(v, device=device).to(dtype) for key, v in draws.items()}
+        bp = bank.tree_map(lambda x: x.expand(NB, *x.shape), p)
+        bp = bp._replace(
+            process_noise=bp.process_noise * d["noise"][:, None, None],
+            water_velocity_scale=bp.water_velocity_scale * d["wv"],
+            gyro_bias_tau=bp.gyro_bias_tau * d["gyro"], quad_damping_tau=bp.quad_damping_tau * d["quad"],
+            inertia_offset=bp.inertia_offset * d["inertia"],
+            projection=bp.projection._replace(lat0=bp.projection.lat0 * d["lat0"]),
+        )
+        bo = pf.banked_predict_operands(bp, 0.01, dtype)
+        record(f"pose_predict_full,{name}",
+               pf.predict_lanes_cuda(cov_t, mu_t, rr_t, bo.coeff, bo.offs, bo.q0m_t, bo.scal, bo.aux_t))
+        for chain in chains:
+            z_ts, r_ts, s6 = [], [], []
+            for model in chain:
+                m = puf.FUSED_MODELS[model]
+                z = zs[model] * 50.0 + 101325.0 if model == "pressure" else zs[model].copy()
+                if model == "acceleration":
+                    z[2] += 9.81  # about the predicted specific force
+                z_ts.append(t(z))
+                var = 2500.0 if model == "pressure" else 0.5
+                r_ts.append((torch.eye(m, dtype=dtype, device=device) * var)[..., None].expand(m, m, NB).contiguous())
+                aux = {"pressure": (101325.0, 0.1, 0.2, -0.3), "water_velocity": (0.3,)}.get(model, ())
+                s6.append(puf._scal_block(gates[model], aux, dtype, device).T)
+            cov_k, mu_k, infos = puf.pose_step_lanes_cuda(chain, cov_t, mu_t, rr_t, *ops, z_ts, r_ts, torch.cat(s6).contiguous())
+            record(f"pose_step[{'+'.join(chain)}],{name}", [cov_k, mu_k, *(x for info in infos for x in info)])
         mscal = puf._efforts_model_scal(p, dtype)
         for model, m in puf.FUSED_MODELS.items():
             z = t(zs[model] * 50.0 + 101325.0 if model == "pressure" else zs[model])
@@ -330,7 +375,7 @@ def kernel_digests(device) -> dict:
                     aux_t = t(auxb + np.asarray(list(aux) + [0.0] * (5 - len(aux)))[:, None])
                 scal = puf._scal_block(thr, aux if form == "shared" else (), dtype, device)
                 args = (model, z, r, mu_t, cov_t, scal, aux_t, mscal if model == "body_efforts" else None)
-                out[f"pose_update_model[{model},{form}],{name}"] = digest(puf.update_model_lanes_cuda(*args))
+                record(f"pose_update_model[{model},{form}],{name}", puf.update_model_lanes_cuda(*args))
     return out
 
 
@@ -368,6 +413,14 @@ DIGESTS = {
     "pose_update_model[z_position,banked],float64": "cf2968bbe8ed7e94",
     "pose_update_model[z_position,shared],float32": "d910f26f47ad1657",
     "pose_update_model[z_position,shared],float64": "cf2968bbe8ed7e94",
+    # K2's full mode and K5 from the build of the tree before both moved to
+    # one warp per instance (the one-thread bodies; same card and toolchain)
+    "pose_predict_full,float32": "ed46a742ce897b8e",
+    "pose_predict_full,float64": "2a935d472e10f442",
+    "pose_step[acceleration+velocity+pressure+water_velocity],float32": "419a86a86c95de86",
+    "pose_step[acceleration+velocity+pressure+water_velocity],float64": "5f33dab9092ad2ec",
+    "pose_step[acceleration+velocity],float32": "89217f5405f6d5f1",
+    "pose_step[acceleration+velocity],float64": "02639ba59025c10f",
 }
 
 
