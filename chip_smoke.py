@@ -132,14 +132,18 @@ csrc`` and then, in order:
    0.5 Hz), per-tick p50 and p99, and holds its final pose to the same ticks
    through the class on the CPU in float64; then checks and times K1 at
    bank 1 on the operands the class gave it, and times K1 alone at bank 1
-   for n = 1 … 64 and at bank 256 for n = 53.
+   for n = 1 … 64 and at bank 256 for n = 53;
+28. (after 12) times K11 with 4 corners and K4 at m = 6 on the card alone at
+   bank 1 and 256 (live vehicles near a marked structure; a generic update
+   of a small bank), each held to its plain version first.
 
 A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
 calls held behind a spin kernel, so the host's time to enqueue each is
 hidden); the ``ptxas`` lines of the warp-per-matrix and warp-per-instance
-kernels K1, K2, K3, K5, K8 and K12 (registers, stack frame, spills) are
-printed on their own, and the warps a block K3 (per model) and K12 choose at
-the main paths' banks, and K2 (both modes) and K5 with the warps an SM keeps.
+kernels K1, K2, K3, K4, K5, K8, K11 and K12 (registers, stack frame, spills)
+are printed on their own, and the warps a block K3 (per model) and K12
+choose at the main paths' banks, and K2 (both modes), K4 (m = 6), K5 and K11
+with the warps an SM keeps.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
@@ -218,7 +222,7 @@ SMOOTHER_BANK = 256
 # the warp-per-matrix and warp-per-instance kernels, whose ptxas lines are
 # printed on their own
 WARP_KERNELS = ("sigma_deltas_kernel", "solve_spd_kernel", "cholesky_kernel", "pose_update_model_kernel",
-                "pose_predict_kernel", "pose_step_kernel")
+                "pose_predict_kernel", "pose_step_kernel", "pose_markers_kernel", "pose_update_tail_kernel")
 # the visual marker of tests/test_full_mission.py: four corners of a 0.3 m
 # square, a camera whose optical axis is body +x, a 1e-6·I pose prior
 MARKER_CORNERS = ((0.15, 0.15, 0.0), (-0.15, 0.15, 0.0), (-0.15, -0.15, 0.0), (0.15, -0.15, 0.0))
@@ -230,15 +234,15 @@ def log(msg: str) -> None:
 
 
 def _warps(name: str, dtype, *sizes) -> int:
-    """Warps a block kernel ``name`` (K2, K3, K5, K12) launches with at ``sizes``."""
+    """Warps a block kernel ``name`` (K2, K3, K4, K5, K11, K12) launches with at ``sizes``."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
     return cuda_lib.KERNELS[name].warps_per_block(dtype, *sizes)
 
 
 def _resident(name: str, dtype, *sizes) -> int:
-    """Warps an SM keeps resident at that block size (K2, K5: the occupancy
-    calculator's answer)."""
+    """Warps an SM keeps resident at that block size (K2, K4, K5, K11: the
+    occupancy calculator's answer)."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
     return cuda_lib.KERNELS[name].resident_warps(dtype, *sizes)
@@ -1529,6 +1533,43 @@ def phase_k2_k5_alone(device) -> dict:
     return out
 
 
+def tail_check_operands(nb: int, dtype, device, gen: torch.Generator, m: int):
+    """K4 operands at bank ``nb``: perturbed mission states, their sigma
+    deltas (K1's plain version), measurement deviations of 0.1 about their
+    mean, ν of 0.3, R = 0.05·I, every 7th ν far out of a χ² gate."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
+    from slam_uwv_kalman_filters_tpu_torch.ops import kernels
+
+    bs, _, _ = mission_setup(nb, torch.float64, device, gen, spread=1.0)
+    ls = pf.to_lanes(bs)
+    rn = lambda *s: torch.randn(*s, generator=gen, dtype=torch.float64, device=device)
+    dz = 0.1 * rn(pf.NSIG, m, nb)
+    nu = 0.3 * rn(m, nb)
+    nu[:, ::7] += 10.0
+    r = (0.05 * torch.eye(m, dtype=torch.float64, device=device))[..., None].repeat(1, 1, nb)
+    to = lambda x: x.to(dtype).contiguous()
+    return (to(kernels.sigma_deltas_lanes_plain(ls.cov_t)), to(dz - dz.mean(0)), to(nu), to(r), to(ls.mu_t),
+            to(ls.cov_t), 5.991)
+
+
+def phase_k11_k4_alone(device) -> dict:
+    """K11 (4 corners, shared marker data) and K4 (m = 6, χ² gate) at bank 1
+    and 256 on the card alone (:func:`_device_ms`), float32, each first held
+    to its plain version on the same operands. Returns {"<kernel>_bank_<N>":
+    ms}."""
+    gen = torch.Generator(device=device).manual_seed(73)
+    out = {}
+    for nb in (1, 256):
+        calls = {"pose_markers": marker_check_operands(nb, torch.float32, device, gen, 4, False),
+                 "pose_update_tail": tail_check_operands(nb, torch.float32, device, gen, 6)}
+        for name, args in calls.items():
+            compare(name, f"alone bank={nb}", args)
+            out[f"{name}_bank_{nb}"] = _device_ms(lambda: _pair(name)[0](*args))
+    log("K11 and K4 on the card alone, float32: "
+        + " ".join(f"{k}={'not measured' if v is None else f'{v:.4f} ms'}" for k, v in out.items()))
+    return out
+
+
 def phase_online_estimator(device, nb: int = 128, seconds: int = 10, rate: float = 100.0):
     """examples/online_estimator.py --fused-step on the port: a seeded
     irregular, shuffled event stream (gyro 100 Hz, DVL 10 Hz, pressure 20 Hz)
@@ -2648,6 +2689,11 @@ def main() -> int:
             + "; ".join(f"{name} " + ", ".join(f"bank {nb} {_warps(name, dtype, nb)} / {_resident(name, dtype, nb)}"
                                                for nb in (args.bank, 256, 128, 1))
                         for name in ("pose_predict", "pose_predict_full", "pose_step")))
+        log(f"warps a block / resident an SM, {str(dtype).split('.')[-1]}: "
+            + "; ".join(f"{name} " + ", ".join(f"bank {nb} {_warps(name, dtype, *sizes, nb)} / "
+                                               f"{_resident(name, dtype, *sizes, nb)}"
+                                               for nb in (args.bank, 256, 1))
+                        for name, sizes in (("pose_markers", ()), ("pose_update_tail", (6,)))))
 
     phase_checks(device)
     phase_mean_accuracy(device)
@@ -2715,6 +2761,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     latency, latency_launches = phase_online_latency(device)
     k2_k5_alone = phase_k2_k5_alone(device)
+    k11_k4_alone = phase_k11_k4_alone(device)
     estimator, estimator_launches = phase_online_estimator(device, seconds=args.online_seconds)
     captured, counts = {}, {}
     velocity, rate_velocity, mission_counts = phase_velocity_bank(device, args.velocity_bank, captured, counts)
@@ -2806,7 +2853,7 @@ def main() -> int:
     ], "mission_ticks_per_s": rate, "banked_mission_ticks_per_s": rate_banked,
         "stepped_mission_ticks_per_s": rate_stepped, "bank": args.bank,
         "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
-        "k2_k5_alone_ms": k2_k5_alone,
+        "k2_k5_alone_ms": k2_k5_alone, "k11_k4_alone_ms": k11_k4_alone,
         "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,

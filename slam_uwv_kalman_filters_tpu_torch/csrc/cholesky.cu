@@ -11,12 +11,12 @@
 // Bound on Hopper: memory, as a function (the lower half read, the whole
 // factor written: ~n² elements per matrix against ~n³/3 FMAs; 0.66 ms at
 // bank 131 072, n = 53, float32). Its first design gave each thread one
-// matrix and ran common.cuh's equilibrated_core with the output as scratch,
+// matrix and ran a one-thread equilibrated core with the output as scratch,
 // so the ~n³/6 read-modify-writes of the factor went through L2, and its
 // wrapper copied the bank-first input into the lanes layout and the factor
 // back (41% of the call). Here one warp factors one matrix in shared memory
-// (warp_factor.cuh, the operation order of equilibrated_core, so float64
-// agrees with the first design to rounding), the block's warps load their
+// (warp_factor.cuh, that core's operation order, so float64 agrees with the
+// first design to rounding), the block's warps load their
 // matrices' lower halves and write their factors through element strides
 // (block_walk), so either layout and strided views go in and out without a
 // copy. What is left is the factor's shared-memory traffic, as in K1.

@@ -57,12 +57,12 @@ __device__ __forceinline__ void s2_boxplus(const T (&x)[3], T d0, T d1, const S2
   for (int i = 0; i < 3; ++i) y[i] = inv * w[i];
 }
 
-// (d0, d1) = y ⊟ x in the basis B at x: θ = atan2(|x × y|, x·y) along the
-// tangential part of y; where that part is < 1e-12, 0 if x·y > 0 and the
-// first basis column times θ (= π) at the antipode
+// v = θ·u, the tangent vector of y ⊟ x before its projection on the basis:
+// θ = atan2(|x × y|, x·y) along the tangential part u of y; where that part
+// is < 1e-12, 0 if x·y > 0 and the first basis column times θ (= π) at the
+// antipode
 template <typename T>
-__device__ __forceinline__ void s2_boxminus(const T (&y)[3], const T (&x)[3], const S2Basis<T>& B, T& d0,
-                                            T& d1) {
+__device__ __forceinline__ void s2_log_vector(const T (&y)[3], const T (&x)[3], const S2Basis<T>& B, T (&v)[3]) {
   const T cx = x[1] * y[2] - x[2] * y[1];
   const T cy = x[2] * y[0] - x[0] * y[2];
   const T cz = x[0] * y[1] - x[1] * y[0];
@@ -82,9 +82,16 @@ __device__ __forceinline__ void s2_boxminus(const T (&y)[3], const T (&x)[3], co
 #pragma unroll
     for (int i = 0; i < 3; ++i) u[i] = t[i] * inv;
   }
-  T v[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) v[i] = theta * u[i];
+}
+
+// (d0, d1) = y ⊟ x in the basis B at x (s2_log_vector, projected)
+template <typename T>
+__device__ __forceinline__ void s2_boxminus(const T (&y)[3], const T (&x)[3], const S2Basis<T>& B, T& d0,
+                                            T& d1) {
+  T v[3];
+  s2_log_vector(y, x, B, v);
   d0 = B.b0[0] * v[0] + B.b0[1] * v[1] + B.b0[2] * v[2];
   d1 = B.b1[0] * v[0] + B.b1[1] * v[1] + B.b1[2] * v[2];
 }

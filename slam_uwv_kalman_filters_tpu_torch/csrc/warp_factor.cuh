@@ -1,23 +1,22 @@
-// The warp-per-matrix equilibrated Cholesky core of K1, K2, K3, K5, K8 and
-// K12.
+// The warp-per-matrix equilibrated Cholesky core of K1, K2, K3, K5, K8, K11
+// and K12.
 //
-// Replaces, for K1, K2, K3, K5, K8 and K12, the TPU core ops/kernels.py::
+// Replaces, for all of them, the TPU core ops/kernels.py::
 // equilibrated_sigma_columns (and, for K12, the factor of _cholesky_lanes_
-// kernel), as common.cuh's equilibrated_core does for K11. The
-// function and the operation order are equilibrated_core's:
-// L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag A, tiny)), only the lower half
-// (row >= col) of A read; right-looking, column j scaled by the reciprocal of
-// its pivot, then the trailing columns downdated in ascending j, each entry
-// by one multiply-add. So float64 results agree with the one-thread core to
-// the rounding of the same operations.
+// kernel). The function and the operation order are those of the first
+// (one-thread) kernels' core: L = D·chol(D^-1·A·D^-1), D = sqrt(max(diag A,
+// tiny)), only the lower half (row >= col) of A read; right-looking, column
+// j scaled by the reciprocal of its pivot, then the trailing columns
+// downdated in ascending j, each entry by one multiply-add. So the results
+// are that core's bits.
 //
 // One warp factors one matrix in dynamic shared memory. Per warp the block's
 // shared memory holds a tile: the matrix column-major with an odd leading
 // dimension ld (entry (r, c) at s[c*ld + r]), then D and D^-1 (n each), then
 // whatever the kernel adds (K8: the right-hand sides; K3: see
-// warp_update.cuh). Lanes own rows: row r belongs to lane r % 32, so n <= 64
-// gives a lane two rows, whose column-j entries it keeps in registers through
-// step j. Every lane reads the pivot and l_kj from one shared address (a
+// warp_update.cuh; K11: see warp_markers.cuh). Lanes own rows: row r belongs
+// to lane r % 32, so n <= 64 gives a lane two rows, whose column-j entries
+// it keeps in registers through step j. Every lane reads the pivot and l_kj from one shared address (a
 // broadcast); a warp walking a row (stride ld) hits 32 distinct banks because
 // ld is odd. There is no global scratch and no per-lane array indexed by a
 // loop variable.
@@ -88,9 +87,12 @@ __device__ __forceinline__ void block_walk(const Strides& g, int R, int C, bool 
 // factor L̃ = chol(D^-1·A·D^-1) in place with explicit zeros above the
 // diagonal (factor column j is s[j*ld + r]·D_r), D in d and D^-1 in dinv.
 // Returns false at the first pivot that is not positive (or NaN), the same
-// value on every lane; with STOP it stops there, without it factors on as
-// equilibrated_core does (the NaN then runs through the rest of the factor).
-template <typename T, bool STOP = true>
+// value on every lane; with STOP it stops there, without it factors on (the
+// NaN then runs through the rest of the factor, as the first one-thread
+// kernels did). Without ZERO_UPPER the strict upper half is neither read nor
+// written, so a caller may keep other data there (K11 keeps its augmented
+// covariance).
+template <typename T, bool STOP = true, bool ZERO_UPPER = true>
 __device__ bool warp_factor(T* s, T* d, T* dinv, int n, int ld) {
   bool fine = true;
   const int r0 = threadIdx.x % kWarpSize, r1 = r0 + kWarpSize;
@@ -118,8 +120,10 @@ __device__ bool warp_factor(T* s, T* d, T* dinv, int n, int ld) {
     if (r0 > j && r0 < n) { x0 = cj[r0] * inv; cj[r0] = x0; }
     if (r1 > j && r1 < n) { x1 = cj[r1] * inv; cj[r1] = x1; }
     __syncwarp();  // every lane has read the diagonal; column j below it is final
-    if (r0 < j) cj[r0] = T(0);
-    if (r1 < j) cj[r1] = T(0);
+    if (ZERO_UPPER) {
+      if (r0 < j) cj[r0] = T(0);
+      if (r1 < j) cj[r1] = T(0);
+    }
     if (r0 == j) cj[r0] = piv;
     if (r1 == j) cj[r1] = piv;
     int k = j + 1;

@@ -7,7 +7,8 @@
 // those of its first design, one thread per instance, bit for bit: every
 // output is made by one lane, in the one-thread body's order and with its
 // expressions; the lanes share out independent outputs only. K5 runs it too,
-// after its predict (block_update_model).
+// after its predict (block_update_model), and K4 (pose_update_tail.cu) runs
+// its gain stages (warp_gain_and_mean) and its downdate (block_downdate).
 //
 // What bounds it on Hopper, and what the design does about it. The function
 // is memory-bound (the valid half of the covariance read and written, 0.47
@@ -59,6 +60,83 @@ struct UpdateTile {
     size = acc + 1;
   }
 };
+
+// Stages 4-6 of the update, one warp: from S (M x M, both halves, in `sm`),
+// ν, C(i, k) at cw[i·53 + k] and the 54 storage rows of μ in `m`:
+//   4. lane 0: the M x M Cholesky of S in place (lower half), idg = 1 /
+//      L_S(i, i), y = L_S^-1·ν, m2 = |y|² and the gate (a threshold < 0
+//      accepts any; a NaN S rejects) into *m2_slot and *acc_slot (1 or 0);
+//   5. W = C·L_S^-T by forward substitution, one lane per column k, in place;
+//      corr(k) = Σ_i W(i, k)·y_i into `corr` (53);
+//   6. the updated mean in place, one lane per storage row: μ ⊞ corr where
+//      accepted, else μ.
+// The expressions and their order are those of the one-thread update tail
+// that K3 and K4 first ran, so its bits are kept. K3, K4 and K5 call it.
+template <typename T>
+__device__ __forceinline__ void warp_gain_and_mean(int M, T thr, T* sm, const T* nu, T* y, T* idg, T* cw,
+                                                   T* corr, T* m, T* m2_slot, T* acc_slot) {
+  constexpr int N = kPoseN;
+  const int lane = threadIdx.x % kWarpSize;
+  auto C = [&](int i, int k) -> T& { return cw[i * N + k]; };
+
+  // 4. lane 0: the M x M Cholesky of S (in place, lower half), y = L_S^-1·ν,
+  // m2 = |y|² and the gate (a threshold < 0 accepts any; a NaN S rejects)
+  if (lane == 0) {
+    for (int j = 0; j < M; ++j) {
+      T sj = sm[j * M + j];
+      for (int k = 0; k < j; ++k) sj -= sm[j * M + k] * sm[j * M + k];
+      sm[j * M + j] = d_sqrt(sj);
+      const T inv = T(1) / sm[j * M + j];
+      for (int i = j + 1; i < M; ++i) {
+        T u = sm[i * M + j];
+        for (int k = 0; k < j; ++k) u -= sm[i * M + k] * sm[j * M + k];
+        sm[i * M + j] = u * inv;
+      }
+    }
+    for (int i = 0; i < M; ++i) idg[i] = T(1) / sm[i * M + i];
+    for (int i = 0; i < M; ++i) {
+      T u = nu[i];
+      for (int kk = 0; kk < i; ++kk) u -= sm[i * M + kk] * y[kk];
+      y[i] = u * idg[i];
+    }
+    T m2 = T(0);
+    for (int i = 0; i < M; ++i) m2 += y[i] * y[i];
+    *m2_slot = m2;
+    *acc_slot = ((m2 <= thr) || (thr < T(0))) ? T(1) : T(0);
+  }
+  __syncwarp();
+
+  // 5. W = C·L_S^-T by forward substitution, one lane per column k, in place;
+  // then corr(k) = Σ_i W(i, k)·y_i
+  for (int k = lane; k < N; k += kWarpSize) {
+    for (int i = 0; i < M; ++i) {
+      T u = C(i, k);
+      for (int kk = 0; kk < i; ++kk) u -= sm[i * M + kk] * C(kk, k);
+      C(i, k) = u * idg[i];
+    }
+    T c = T(0);
+    for (int i = 0; i < M; ++i) c += C(i, k) * y[i];
+    corr[k] = c;
+  }
+  __syncwarp();
+
+  // 6. the updated mean in place, one lane per storage row: μ ⊞ corr where
+  // accepted, else μ (read everything first, then write)
+  const bool accept = *acc_slot != T(0);
+  auto updated = [&](int r) -> T {
+    if (r >= 3 && r < 7) {
+      const Quat<T> qn = qnorm(qmul(Quat<T>{m[3], m[4], m[5], m[6]}, qexp(corr[3], corr[4], corr[5])));
+      return accept ? (r == 3 ? qn.w : r == 4 ? qn.x : r == 5 ? qn.y : qn.z) : m[r];
+    }
+    return accept ? m[r] + corr[r < 3 ? r : r - 1] : m[r];
+  };
+  const int r1 = lane + kWarpSize;
+  const T v0 = updated(lane), v1 = r1 < kPoseS ? updated(r1) : T(0);
+  __syncwarp();
+  m[lane] = v0;
+  if (r1 < kPoseS) m[r1] = v1;
+  __syncwarp();
+}
 
 // One warp, instance b (its tile s holds the valid covariance half and the
 // mean): everything up to the downdate, which the kernel does block-wide.
@@ -148,66 +226,36 @@ __device__ void warp_update_model(T* s, const UpdateTile& t, int model, const T*
   }
   __syncwarp();
 
-  // 4. lane 0: the m x m Cholesky of S (in place, lower half), y = L_S^-1·ν,
-  // m2 = |y|² and the gate (a threshold < 0 accepts any; a NaN S rejects)
-  T* const y = s + t.y;
-  T* const idg = s + t.idg;
-  if (lane == 0) {
-    for (int j = 0; j < M; ++j) {
-      T sj = sm[j * M + j];
-      for (int k = 0; k < j; ++k) sj -= sm[j * M + k] * sm[j * M + k];
-      sm[j * M + j] = d_sqrt(sj);
-      const T inv = T(1) / sm[j * M + j];
-      for (int i = j + 1; i < M; ++i) {
-        T u = sm[i * M + j];
-        for (int k = 0; k < j; ++k) u -= sm[i * M + k] * sm[j * M + k];
-        sm[i * M + j] = u * inv;
-      }
-    }
-    for (int i = 0; i < M; ++i) idg[i] = T(1) / sm[i * M + i];
-    for (int i = 0; i < M; ++i) {
-      T u = nu[i];
-      for (int kk = 0; kk < i; ++kk) u -= sm[i * M + kk] * y[kk];
-      y[i] = u * idg[i];
-    }
-    T m2 = T(0);
-    for (int i = 0; i < M; ++i) m2 += y[i] * y[i];
-    s[t.m2] = m2;
-    s[t.acc] = ((m2 <= thr) || (thr < T(0))) ? T(1) : T(0);
-  }
-  __syncwarp();
+  // 4-6. the gain, the gate, W, the correction (into the dead Z) and the
+  // updated mean
+  warp_gain_and_mean<T>(M, thr, sm, s + t.nu, s + t.y, s + t.idg, cw, zs, m, s + t.m2, s + t.acc);
+}
 
-  // 5. W = C·L_S^-T by forward substitution, one lane per column k, in place;
-  // then corr(k) = Σ_i W(i, k)·y_i into the dead Z
-  T* const corr = zs;
-  for (int k = lane; k < N; k += kWarpSize) {
-    for (int i = 0; i < M; ++i) {
-      T u = C(i, k);
-      for (int kk = 0; kk < i; ++kk) u -= sm[i * M + kk] * C(kk, k);
-      C(i, k) = u * idg[i];
+// The block's downdate, bank-minor (block_walk): cov − W·Wᵀ on the valid half
+// of each instance whose gate accepted (tile entry `acc` not 0), else the
+// prior, prior(i, r, c, e) for entry (r, c) of tile i, e its index in
+// cov_out; W(i, k) at tile entry cw + i·53 + k, the tiles `stride` apart.
+// Each entry is read and written by one thread, so a prior read from cov_out
+// itself is fine. K3, K4 and K5 call it.
+template <typename T, typename Prior>
+__device__ __forceinline__ void block_downdate(int M, int cw, int acc, Prior prior_of, T* cov_out, long long nb,
+                                               int log_w, int stride) {
+  constexpr int N = kPoseN;
+  const T* const base = warp_smem<T>();
+  const long long b0 = static_cast<long long>(blockIdx.x) << log_w;
+  const Strides gc{1, nb, N * nb};
+  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
+    const T* s = base + i * stride;
+    const long long e = (b0 + i) + r * nb + c * (N * nb);
+    const T prior = prior_of(i, r, c, e);
+    if (s[acc] != T(0)) {
+      T a = T(0);
+      for (int k = 0; k < M; ++k) a += s[cw + k * N + c] * s[cw + k * N + r];
+      cov_out[e] = prior - a;
+    } else {
+      cov_out[e] = prior;
     }
-    T c = T(0);
-    for (int i = 0; i < M; ++i) c += C(i, k) * y[i];
-    corr[k] = c;
-  }
-  __syncwarp();
-
-  // 6. the updated mean in place, one lane per storage row: μ ⊞ corr where
-  // accepted, else μ (read everything first, then write)
-  const bool accept = s[t.acc] != T(0);
-  auto updated = [&](int r) -> T {
-    if (r >= 3 && r < 7) {
-      const Quat<T> qn = qnorm(qmul(Quat<T>{m[3], m[4], m[5], m[6]}, qexp(corr[3], corr[4], corr[5])));
-      return accept ? (r == 3 ? qn.w : r == 4 ? qn.x : r == 5 ? qn.y : qn.z) : m[r];
-    }
-    return accept ? m[r] + corr[r < 3 ? r : r - 1] : m[r];
-  };
-  const int r1 = lane + kWarpSize;
-  const T v0 = updated(lane), v1 = r1 < kPoseS ? updated(r1) : T(0);
-  __syncwarp();
-  m[lane] = v0;
-  if (r1 < kPoseS) m[r1] = v1;
-  __syncwarp();
+  });
 }
 
 // The block's W = 2^log_w instances b0 + w, one warp each, tiles `stride`
@@ -249,19 +297,8 @@ __device__ __forceinline__ void block_update_model(int model, int banked_aux, co
     warp_update_model<T>(base + w * stride, t, model, aux, msc, scal[0], z + b, rmat + b, nb);
   }
   __syncthreads();
-  // the downdate cov − W·Wᵀ on the valid half where accepted, else the prior
-  block_walk(gc, N, N, true, log_w, b0, nb, [&](int i, int r, int c) {
-    const T* s = base + i * stride;
-    const long long e = (b0 + i) + r * nb + c * (N * nb);
-    const T prior = cov[e];
-    if (s[t.acc] != T(0)) {
-      T acc = T(0);
-      for (int k = 0; k < M; ++k) acc += s[t.cw + k * N + c] * s[t.cw + k * N + r];
-      cov_out[e] = prior - acc;
-    } else {
-      cov_out[e] = prior;
-    }
-  });
+  // the prior read a second time rather than kept in a second tile
+  block_downdate<T>(M, t.cw, t.acc, [&](int, int, int, long long e) { return cov[e]; }, cov_out, nb, log_w, stride);
   block_walk(gv, kPoseS, 1, false, log_w, b0, nb, [&](int i, int r, int) {
     mu_out[(b0 + i) + r * nb] = base[i * stride + t.mean + r];
   });

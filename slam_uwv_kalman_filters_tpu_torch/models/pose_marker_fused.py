@@ -164,9 +164,9 @@ def pose_markers_lanes_plain(cov_t, mu_t, mk_t, z_t, r_t, scal):
 def pose_markers_lanes_cuda(cov_t, mu_t, mk_t, z_t, r_t, scal):
     """K11 on the card, same operands and outputs as
     :func:`pose_markers_lanes_plain` (the other half of cov_out is left
-    unwritten); the corner count is a runtime loop of the kernel, with no
-    cap."""
-    n, nb, k = AUG_TANGENT, cov_t.shape[-1], z_t.shape[0]
+    unwritten): one warp per instance, no scratch; the corner count is a
+    runtime loop of the kernel, with no cap."""
+    nb, k = cov_t.shape[-1], z_t.shape[0]
     dev, dtype = cov_t.device, cov_t.dtype
     if k < 1:
         raise ValueError("the marker update kernel needs at least one corner")
@@ -177,13 +177,10 @@ def pose_markers_lanes_cuda(cov_t, mu_t, mk_t, z_t, r_t, scal):
     empty = lambda *shape: torch.empty(shape, dtype=dtype, device=dev)
     cov_out, mu_out, m2, nu_t = empty(TANGENT_DIM, TANGENT_DIM, nb), empty(STORAGE_DIM, nb), empty(k, nb), \
         empty(k, 2, nb)
-    # scratch: the augmented covariance, its kept factor, the 119 bearings
-    # (then their deviations), C then the gain W
-    a_s, c_s, bear_s, w_s = empty(n, n, nb), empty(n, n, nb), empty(AUG_NSIG, 3, nb), empty(2, n, nb)
-    cuda_lib.check_lanes("pose_markers", dev, dtype, cov_out=cov_out, a_s=a_s, **ops)
+    cuda_lib.check_lanes("pose_markers", dev, dtype, cov_out=cov_out, **ops)
     cuda_lib.KERNELS["pose_markers"].launch(
         dtype, *(t.data_ptr() for t in (cov_t, mu_t, mk_t, z_t, r_t, scal)), k,
-        *(t.data_ptr() for t in (cov_out, mu_out, m2, nu_t, a_s, c_s, bear_s, w_s)), nb, cuda_lib.stream_ptr(dev))
+        *(t.data_ptr() for t in (cov_out, mu_out, m2, nu_t)), nb, cuda_lib.stream_ptr(dev))
     return cov_out, mu_out, m2, nu_t
 
 

@@ -19,10 +19,10 @@ Two routes, as in JAX:
   PyTorch on the rows it depends on (:func:`_measurement_stage`), then the
   update tail in one launch: S = ½ΣdZdZᵀ + R, C = ½ΣδdZᵀ over all 107
   points, and the gain, gate, correction and downdate of K3 (one shared copy,
-  ``csrc/common.cuh::update_tail``). :func:`update_lanes` and
-  :func:`update_fused_banked` take it; so does a banked vehicle model in
-  :func:`update_body_efforts_lanes`. The measurement dimension is capped at
-  :data:`MAX_TAIL_M`.
+  ``csrc/warp_update.cuh``'s ``warp_gain_and_mean`` and ``block_downdate``).
+  :func:`update_lanes` and :func:`update_fused_banked` take it; so does a
+  banked vehicle model in :func:`update_body_efforts_lanes`. The measurement
+  dimension is capped at :data:`MAX_TAIL_M`.
 
 The in-kernel route:
 
@@ -349,7 +349,8 @@ def update_tail_plain(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
 
 def update_tail_cuda(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
     """K4 on the card, same operands and outputs as :func:`update_tail_plain`
-    (the other half of cov_out is left unwritten)."""
+    (the other half of cov_out is left unwritten): one warp per instance, no
+    scratch."""
     n, nb, m = TANGENT_DIM, cov_t.shape[-1], dz_t.shape[1]
     dev, dtype = cov_t.device, cov_t.dtype
     ops = dict(deltas_t=deltas_t, dz_t=dz_t, nu_t=nu_t, r_t=r_t, mu_t=mu_t, cov_t=cov_t)
@@ -359,12 +360,11 @@ def update_tail_cuda(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
         if tuple(ops[key].shape) != shape:
             raise ValueError(f"pose_update_tail: {key} has shape {tuple(ops[key].shape)}, expected {shape}")
     empty = lambda *s: torch.empty(s, dtype=dtype, device=dev)
-    cov_out, mu_out, m2, acc, w = empty(n, n, nb), empty(STORAGE_DIM, nb), empty(1, nb), empty(1, nb), empty(m, n, nb)
+    cov_out, mu_out, m2, acc = empty(n, n, nb), empty(STORAGE_DIM, nb), empty(1, nb), empty(1, nb)
     cuda_lib.check_lanes("pose_update_tail", dev, dtype, cov_out=cov_out, **ops)
     cuda_lib.KERNELS["pose_update_tail"].launch(
         dtype, m, *(t.data_ptr() for t in (deltas_t, dz_t, nu_t, r_t, mu_t, cov_t)), float(thr),
-        cov_out.data_ptr(), mu_out.data_ptr(), m2.data_ptr(), acc.data_ptr(), w.data_ptr(), nb,
-        cuda_lib.stream_ptr(dev),
+        cov_out.data_ptr(), mu_out.data_ptr(), m2.data_ptr(), acc.data_ptr(), nb, cuda_lib.stream_ptr(dev),
     )
     return cov_out, mu_out, m2, acc
 

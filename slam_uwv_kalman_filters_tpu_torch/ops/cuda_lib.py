@@ -118,8 +118,9 @@ KERNELS = {
     ),
     "pose_update_tail": Kernel(
         "pose_update_tail", "slam_pose_update_tail", "csrc/pose_update_tail.cu",
-        # m, deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr, cov_out, mu_out, m2, acc, w, nb, stream
-        (_I32, _P, _P, _P, _P, _P, _P, _F64, _P, _P, _P, _P, _P, _I64, _P),
+        # m, deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr, cov_out, mu_out, m2, acc, nb, stream
+        (_I32, _P, _P, _P, _P, _P, _P, _F64, _P, _P, _P, _P, _I64, _P),
+        warps=(_I32, _I64), resident=True,  # m, nb
     ),
     "pose_step": Kernel(
         "pose_step", "slam_pose_step", "csrc/pose_step.cu",
@@ -157,8 +158,9 @@ KERNELS = {
     ),
     "pose_markers": Kernel(
         "pose_markers", "slam_pose_markers", "csrc/pose_markers.cu",
-        # cov_t, mu_t, mk_t, z_t, r_t, scal, k, cov_out, mu_out, m2, nu_t, a, c, bear, w, nb, stream
-        (_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        # cov_t, mu_t, mk_t, z_t, r_t, scal, k, cov_out, mu_out, m2, nu_t, nb, stream
+        (_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb
     ),
     "cholesky": Kernel(
         "cholesky", "slam_cholesky", "csrc/cholesky.cu",

@@ -12,11 +12,12 @@ Tolerances are normalized errors (see each test): float64 within 1e-9,
 float32 within 2e-3 (107-point sums and a 53-column factorization rounded in
 another order than PyTorch's library calls).
 
-:func:`kernel_digests` hashes the outputs of K2 (both modes), K3 and K5 on
-fixed operands; :data:`DIGESTS` holds what K2's shared mode and K3 gave
+:func:`kernel_digests` hashes the outputs of K2 (both modes), K3, K4, K5 and
+K11 on fixed operands; :data:`DIGESTS` holds what K2's shared mode and K3 gave
 before K2 gained its full mode and K3's update tail moved into
-``csrc/common.cuh``, and what K2's full mode and K5 gave before both moved to
-one warp per instance (the builds of those trees, NVIDIA H100 80GB HBM3),
+``csrc/common.cuh``, what K2's full mode and K5 gave before both moved to one
+warp per instance, and what K4 and K11 gave before they did (the builds of
+those trees, NVIDIA H100 80GB HBM3),
 and the test holds the current build to them bit for bit; :func:`velocity_digests` and :data:`VELOCITY_DIGESTS` do the
 same for K6 across the move of its Crout factor, substitutions and Kalman
 tail into ``csrc/small_ukf.cuh``. The module imports at its top only what
@@ -30,6 +31,8 @@ routing of a CUDA bank's ``update_visual_features_bank`` through it.
 """
 
 import hashlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -283,7 +286,12 @@ def kernel_digests(device, outputs: dict | None = None) -> dict:
     of the full mode's per-instance operands and of the chains come after
     the others, so adding them moved no earlier operand). ``outputs``, when
     given, also receives each key's output tensors on the CPU, to locate a
-    drift entry by entry."""
+    drift entry by entry. Since the build before K11 and K4 moved to one warp
+    per instance it also hashes K4's outputs for m = 1, 2, 3, 6 with open and
+    rejecting gates and a NaN S, and K11's with 1 and 4 corners, shared and
+    per-instance marker data (``chip_smoke.marker_check_operands``)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_marker_fused as pmf
+
     f64 = torch.float64
     state, params = pukf.init_from_pose(
         torch.zeros(3, dtype=f64), torch.eye(3, dtype=f64) * 0.01,
@@ -310,6 +318,15 @@ def kernel_digests(device, outputs: dict | None = None) -> dict:
     draws = {key: 1.0 + 0.2 * np.clip(rng.normal(size=(NB, *shape)), -3, 3)
              for key, shape in (("noise", ()), ("wv", ()), ("gyro", ()), ("quad", ()), ("inertia", (3, 3)),
                                 ("lat0", ()))}
+    # K4: a generic-h update of m <= 6 rows about the covariance's own
+    # sigma deltas, dz = H·δ + noise, every 7th innovation far out
+    lc = np.linalg.cholesky(cov)  # (NB, n, n)
+    cols = np.transpose(lc, (2, 1, 0))  # (j, k, NB): column j of L at row k
+    deltas = np.concatenate([np.zeros((1, n, NB)), cols, -cols])
+    h = 0.3 * rng.normal(size=(6, n))
+    dz_all = np.einsum("in,pnb->pib", h, deltas) + 0.01 * rng.normal(size=(2 * n + 1, 6, NB))
+    nu_all = 0.3 * rng.normal(size=(6, NB))
+    nu_all[:, ::7] += 10.0
     chains = (("acceleration", "velocity"), ("acceleration", "velocity", "pressure", "water_velocity"))
     gates = {"acceleration": 7.815, "velocity": 7.815, "pressure": None, "water_velocity": 5.991}
     valid = torch.triu(torch.ones(n, n, dtype=torch.bool)).to(device)
@@ -376,7 +393,33 @@ def kernel_digests(device, outputs: dict | None = None) -> dict:
                 scal = puf._scal_block(thr, aux if form == "shared" else (), dtype, device)
                 args = (model, z, r, mu_t, cov_t, scal, aux_t, mscal if model == "body_efforts" else None)
                 record(f"pose_update_model[{model},{form}],{name}", puf.update_model_lanes_cuda(*args))
+        # K4 for m = 1, 2, 3, 6: every gate open (threshold < 0), then χ²
+        # gates that reject every 7th instance, with instance 5's S NaN
+        for m in (1, 2, 3, 6):
+            for thr in (-1.0, 5.991):
+                r = (torch.eye(m, dtype=dtype, device=device) * 0.05)[..., None].repeat(1, 1, NB)
+                if thr >= 0:
+                    r[0, 0, 5] = float("nan")
+                args = (t(deltas), t(dz_all[:, :m]), t(nu_all[:m]), r, mu_t, cov_t, thr)
+                record(f"pose_update_tail[m={m},thr={thr:g}],{name}", puf.update_tail_cuda(*args))
+        # K11 on chip_smoke.py's check operands at this ragged bank
+        for k, per_instance in ((1, False), (1, True), (4, False), (4, True)):
+            args = chip_smoke().marker_check_operands(NB, dtype, device,
+                                                      torch.Generator(device=device).manual_seed(43), k, per_instance)
+            record(f"pose_markers[k={k},{'per-instance' if per_instance else 'shared'}],{name}",
+                   pmf.pose_markers_lanes_cuda(*args))
     return out
+
+
+def chip_smoke():
+    """The repository's chip_smoke module (its K11 check operands), found
+    beside tests/ when the working directory is elsewhere."""
+    try:
+        import chip_smoke as module
+    except ImportError:
+        sys.path.append(str(Path(__file__).resolve().parent.parent))
+        import chip_smoke as module
+    return module
 
 
 # kernel_digests of the build before the full mode and the shared tail
@@ -421,6 +464,33 @@ DIGESTS = {
     "pose_step[acceleration+velocity+pressure+water_velocity],float64": "5f33dab9092ad2ec",
     "pose_step[acceleration+velocity],float32": "89217f5405f6d5f1",
     "pose_step[acceleration+velocity],float64": "02639ba59025c10f",
+    # K4 and K11 from the build of the tree before both moved to one warp per
+    # instance (the one-thread kernels; NVIDIA H100 80GB HBM3, CUDA 12.8,
+    # PyTorch 2.11)
+    "pose_markers[k=1,per-instance],float32": "397d9bc9568921df",
+    "pose_markers[k=1,per-instance],float64": "076fe12a40aeb6e1",
+    "pose_markers[k=1,shared],float32": "bf5e6a660c37232e",
+    "pose_markers[k=1,shared],float64": "c51d0406d2fc37bf",
+    "pose_markers[k=4,per-instance],float32": "934bdf47f86c55ad",
+    "pose_markers[k=4,per-instance],float64": "af11390de259f6a6",
+    "pose_markers[k=4,shared],float32": "761d4e476a17bfef",
+    "pose_markers[k=4,shared],float64": "1cfe8fcdd5bc2213",
+    "pose_update_tail[m=1,thr=-1],float32": "00c1cdc36cc698ba",
+    "pose_update_tail[m=1,thr=-1],float64": "9e54c983d458b692",
+    "pose_update_tail[m=1,thr=5.991],float32": "1d2e32d27ae31d61",
+    "pose_update_tail[m=1,thr=5.991],float64": "79f9d4b6429c1b4f",
+    "pose_update_tail[m=2,thr=-1],float32": "920b88188aba0f3f",
+    "pose_update_tail[m=2,thr=-1],float64": "520186bc2c39279f",
+    "pose_update_tail[m=2,thr=5.991],float32": "51df763986ba4cb7",
+    "pose_update_tail[m=2,thr=5.991],float64": "363b287cd551cd89",
+    "pose_update_tail[m=3,thr=-1],float32": "084344ba079bc57e",
+    "pose_update_tail[m=3,thr=-1],float64": "5c9d95d6b3fcb48b",
+    "pose_update_tail[m=3,thr=5.991],float32": "0cbae5db265d5b5d",
+    "pose_update_tail[m=3,thr=5.991],float64": "cecbc55d4cf918ba",
+    "pose_update_tail[m=6,thr=-1],float32": "73c7bf918decfd20",
+    "pose_update_tail[m=6,thr=-1],float64": "e5d8e14c5082fee4",
+    "pose_update_tail[m=6,thr=5.991],float32": "6d85c66630713091",
+    "pose_update_tail[m=6,thr=5.991],float64": "688662f09f8dd946",
 }
 
 
