@@ -219,10 +219,11 @@ PROBE_LIMIT = 1e-5
 BOTTOM_BANK = 65536
 INDIRECT_BANK = 65536
 SMOOTHER_BANK = 256
-# the warp-per-matrix and warp-per-instance kernels, whose ptxas lines are
-# printed on their own
+# the warp-per-matrix and warp-per-instance kernels and K7's and K10's
+# designs, whose ptxas lines are printed on their own
 WARP_KERNELS = ("sigma_deltas_kernel", "solve_spd_kernel", "cholesky_kernel", "pose_update_model_kernel",
-                "pose_predict_kernel", "pose_step_kernel", "pose_markers_kernel", "pose_update_tail_kernel")
+                "pose_predict_kernel", "pose_step_kernel", "pose_markers_kernel", "pose_update_tail_kernel",
+                "bottom_step_group_kernel", "bottom_step_thread_kernel", "indirect_markers_kernel")
 # the visual marker of tests/test_full_mission.py: four corners of a 0.3 m
 # square, a camera whose optical axis is body +x, a 1e-6·I pose prior
 MARKER_CORNERS = ((0.15, 0.15, 0.0), (-0.15, 0.15, 0.0), (-0.15, -0.15, 0.0), (0.15, -0.15, 0.0))
@@ -234,15 +235,15 @@ def log(msg: str) -> None:
 
 
 def _warps(name: str, dtype, *sizes) -> int:
-    """Warps a block kernel ``name`` (K2, K3, K4, K5, K11, K12) launches with at ``sizes``."""
+    """Warps a block kernel ``name`` (K2, K3, K4, K5, K7, K10, K11, K12) launches with at ``sizes``."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
     return cuda_lib.KERNELS[name].warps_per_block(dtype, *sizes)
 
 
 def _resident(name: str, dtype, *sizes) -> int:
-    """Warps an SM keeps resident at that block size (K2, K4, K5, K11: the
-    occupancy calculator's answer)."""
+    """Warps an SM keeps resident at that block size (K2, K4, K5, K7, K10,
+    K11: the occupancy calculator's answer)."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
     return cuda_lib.KERNELS[name].resident_warps(dtype, *sizes)
@@ -831,14 +832,15 @@ def _time(fn, reps: int, hold_cycles: int = 0) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _device_ms(fn, reps: int = 20):
+def _device_ms(fn, reps: int = 20, cycles: int = 200_000):
     """Milliseconds per call on the card alone, without the host's time to
     enqueue each call (which :func:`_time` includes where it is the longer):
-    ``reps`` calls held behind ~0.1 ms of spin per call (at ~2 GHz), the
-    median of three rounds. None where PyTorch has no spin kernel."""
+    ``reps`` calls held behind ``cycles`` of spin per call (~0.1 ms at ~2
+    GHz by default), the median of three rounds. None where PyTorch has no
+    spin kernel."""
     if not hasattr(torch.cuda, "_sleep"):
         return None
-    return sorted(_time(fn, reps, hold_cycles=200_000 * reps) for _ in range(3))[1]
+    return sorted(_time(fn, reps, hold_cycles=cycles * reps) for _ in range(3))[1]
 
 
 # operations of each in-kernel measurement model per sigma point (estimate)
@@ -1570,6 +1572,30 @@ def phase_k11_k4_alone(device) -> dict:
     return out
 
 
+def phase_k7_k10_alone(device) -> dict:
+    """K7 (predict + one range) and K10 (1 and 4 corners) at bank 1, 256 and
+    65 536 on the card alone (:func:`_device_ms`, ~0.5 ms of spin a call:
+    K7's wrapper packs its chain on the host), float32, on the BottomUKF and
+    IndirectPoseUKF banks' own operands (one step of each bank's entry
+    points, ``tools/small_kernel_times.py``), each first held to its plain
+    version on the same operands. Returns {"<kernel>_bank_<N>": ms}."""
+    from slam_uwv_kalman_filters_tpu_torch.tools import small_kernel_times as skt
+
+    out = {}
+    for nb in (1, 256, BOTTOM_BANK):
+        calls = {"bottom_step": skt.bottom_operands(nb, torch.float32, device)}
+        for k in (1, 4):
+            calls[f"indirect_markers[k={k}]"] = skt.indirect_operands(nb, k, torch.float32, device)
+        for label, args in calls.items():
+            name = label.split("[")[0]
+            compare(name, f"alone bank={nb} {label}", args)
+            out[f"{label}_bank_{nb}"] = _device_ms(lambda: _pair(name)[0](*args), cycles=1_000_000)
+        del calls
+    log("K7 and K10 on the card alone, float32: "
+        + " ".join(f"{k}={'not measured' if v is None else f'{v:.5f} ms'}" for k, v in out.items()))
+    return out
+
+
 def phase_online_estimator(device, nb: int = 128, seconds: int = 10, rate: float = 100.0):
     """examples/online_estimator.py --fused-step on the port: a seeded
     irregular, shuffled event stream (gyro 100 Hz, DVL 10 Hz, pressure 20 Hz)
@@ -1799,35 +1825,24 @@ def phase_checks_bottom_solve(device):
             compare("solve_spd[bank-first]", f"solve_spd[{label}, bank-first, Bᵀ view]", (a_t.permute(2, 1, 0), rhs))
 
 
-def bottom_setup(nb: int, dtype, device):
-    """bench.py's small-filter BottomUKF (BASELINE configs[1]): distance 10 m,
-    normal (0, 0, 1), cov diag(1, 0.05, 0.05), velocity (0.5, 0, −0.1), the
-    reference's identity process noise."""
-    from slam_uwv_kalman_filters_tpu_torch.models import bottom_ukf as bu
-    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+def bottom_bank(nb: int, device):
+    """The BottomUKF bank's float32 (bank state, lanes state, step): bench.py's
+    step, predict(0.1) + one range, one K7 launch
+    (``tools/small_kernel_times.bottom_bank``)."""
+    from slam_uwv_kalman_filters_tpu_torch.tools import small_kernel_times as skt
 
-    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
-    state, params = bu.init(bu.BottomState(distance=t([10.0]), normal=t([0.0, 0.0, 1.0])),
-                            torch.diag(t([1.0, 0.05, 0.05])))
-    return bank.replicate(bu.set_velocity(state, t([0.5, 0.0, -0.1])), nb), params
+    return skt.bottom_bank(nb, torch.float32, device)
 
 
 def phase_bottom_bank(device, nb: int, captured: dict, counts: dict, steps: int = 30):
-    """The fifth main path: bench.py's BottomUKF step (predict(0.1) + one
-    range beam (0, 0, −1) from the origin, z = 0.3, R = 1e-3, as the bench
-    feeds it) as one K7 launch per step on lanes state at bank ``nb``,
+    """The fifth main path: the BottomUKF bank's step (:func:`bottom_bank`,
+    bench.py's) as one K7 launch per step on lanes state at bank ``nb``,
     float32: one warm step that records K7's operands, then ``steps`` timed
     steps between a zeroing and a reading of the counters."""
     from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
-    dtype = torch.float32
-    bs, params = bottom_setup(nb, dtype, device)
-    ls = bf.to_lanes(bs)
-    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
-    up = [bf.StepUpdate("range", t([0.3]).expand(nb, 1), t([[1e-3]]), t([0.0, 0.0, -1.0]), torch.zeros(3, dtype=dtype,
-                                                                                                   device=device))]
-    step = lambda ls: bf.step_lanes(ls, params, 0.1, up)[0]
+    bs, ls, step = bottom_bank(nb, device)
     with capture_operands(captured, counts, keep=lambda key: key.startswith("bottom_step")):
         ls = step(ls)
     torch.cuda.synchronize()
@@ -1931,33 +1946,76 @@ def phase_checks_indirect(device):
                 raise AssertionError(f"indirect_{label}: pad lanes changed the bank or went non-finite")
 
 
+def indirect_bank(nb: int, device):
+    """The IndirectPoseUKF bank's float32 (bank state, lanes state, step):
+    bench.py's step, predict(0.1) + one marker corner, one K9 and one K10
+    launch (``tools/small_kernel_times.indirect_bank``)."""
+    from slam_uwv_kalman_filters_tpu_torch.tools import small_kernel_times as skt
+
+    return skt.indirect_bank(nb, torch.float32, device)
+
+
+def phase_small_bank_profile(device, steps: int = 30) -> dict:
+    """Where the BottomUKF and IndirectPoseUKF banks' steps spend their time
+    outside the kernels: ``steps`` steps of each bank (65 536, float32) after
+    a warm one, under ``torch.profiler``. Per step: the host wall time, the
+    device's busy time (the union of its event intervals) and idle share,
+    the device events by kind (the port's kernels, PyTorch's kernels, copies
+    and sets) with their time, and the host operators with the most self
+    time. Measures only; returns {bank: {...}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, make, nb in (("bottom", bottom_bank, BOTTOM_BANK), ("indirect", indirect_bank, INDIRECT_BANK)):
+        _, ls, step = make(nb, device)
+        ls = step(ls)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                ls = step(ls)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy, cur = 0.0, None
+        for s, e in sorted((e.time_range.start, e.time_range.end) for e in ev):
+            if cur is None or s > cur[1]:
+                busy += 0.0 if cur is None else cur[1] - cur[0]
+                cur = [s, e]
+            else:
+                cur[1] = max(cur[1], e)
+        busy += 0.0 if cur is None else cur[1] - cur[0]
+        kinds = {}
+        for e in ev:
+            kind = ("port kernel" if "_kernel" in e.name and any(n in e.name for n in TPU_KERNELS)
+                    else "copy" if "memcpy" in e.name.lower() else "set" if "memset" in e.name.lower()
+                    else "PyTorch kernel")
+            n, us = kinds.get(kind, (0, 0.0))
+            kinds[kind] = (n + 1, us + e.time_range.end - e.time_range.start)
+        host = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda a: -a.self_cpu_time_total)[:10]
+        out[label] = {
+            "bank": nb, "steps": steps, "wall_ms_per_step": wall_us / 1e3 / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps, "idle_share": 1.0 - busy / wall_us if ev else None,
+            "device_events_per_step": {k: {"count": n / steps, "ms": us / 1e3 / steps} for k, (n, us) in kinds.items()},
+            "host_self_ms_per_step": {a.key: {"count": a.count / steps, "ms": a.self_cpu_time_total / 1e3 / steps}
+                                      for a in host},
+        }
+        log(f"profile {label} bank {nb}: {json.dumps(out[label])}")
+        del ls, step
+    return out
+
+
 def phase_indirect_bank(device, nb: int, captured: dict, counts: dict, steps: int = 30):
-    """The seventh main path: bench.py's IndirectPoseUKF step (BASELINE
-    configs[2]: ``init((0.05,)*3, (0.02,)*3, 30)``, predict(0.1), then one
-    marker corner: pixel (330, 236) with covariance 4·I of the feature (0.1,
-    0.1, 0) of a marker at (2, 0, 1) with identity orientation and pose
-    covariance 1e-4·I, the camera at the body origin, a default camera) as
-    one K9 and one K10 launch per step on lanes state at bank ``nb``,
-    float32: one warm step that records the operands, then ``steps`` timed
-    steps between a zeroing and a reading of the counters."""
+    """The seventh main path: the IndirectPoseUKF bank's step
+    (:func:`indirect_bank`, bench.py's) as one K9 and one K10 launch per step
+    on lanes state at bank ``nb``, float32: one warm step that records the
+    operands, then ``steps`` timed steps between a zeroing and a reading of
+    the counters."""
     from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
-    from slam_uwv_kalman_filters_tpu_torch.models import indirect_pose_ukf as ipu
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
-    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
-    from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration
 
-    dtype = torch.float32
-    state, params = ipu.init((0.05,) * 3, (0.02,) * 3, 30.0, dtype=dtype, device=device)
-    bs = bank.replicate(state, nb)
-    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
-    marker = (t([[330.0, 236.0]]), 4.0 * torch.eye(2, dtype=dtype, device=device)[None], t([[0.1, 0.1, 0.0]]),
-              t([2.0, 0.0, 1.0]), t([1.0, 0.0, 0.0, 0.0]), 1e-4 * torch.eye(6, dtype=dtype, device=device),
-              CameraConfiguration(), torch.zeros(3, dtype=dtype, device=device), t([1.0, 0.0, 0.0, 0.0]))
-
-    def step(ls):
-        return ifu.update_markers_lanes(ifu.predict_lanes(ls, params, 0.1), *marker)[0]
-
-    ls = ifu.to_lanes(bs)
+    bs, ls, step = indirect_bank(nb, device)
     with capture_operands(captured, counts, keep=lambda key: key.startswith("indirect_")):
         ls = step(ls)
     torch.cuda.synchronize()
@@ -2694,6 +2752,10 @@ def main() -> int:
                                                f"{_resident(name, dtype, *sizes, nb)}"
                                                for nb in (args.bank, 256, 1))
                         for name, sizes in (("pose_markers", ()), ("pose_update_tail", (6,)))))
+        log(f"warps a block / resident an SM (the design picked for the bank), {str(dtype).split('.')[-1]}: "
+            + "; ".join(f"{name} " + ", ".join(f"bank {nb} {_warps(name, dtype, nb)} / {_resident(name, dtype, nb)}"
+                                               for nb in (BOTTOM_BANK, 16384, 4096, 256, 1))
+                        for name in ("bottom_step", "indirect_markers")))
 
     phase_checks(device)
     phase_mean_accuracy(device)
@@ -2762,6 +2824,8 @@ def main() -> int:
     latency, latency_launches = phase_online_latency(device)
     k2_k5_alone = phase_k2_k5_alone(device)
     k11_k4_alone = phase_k11_k4_alone(device)
+    k7_k10_alone = phase_k7_k10_alone(device)
+    small_profile = phase_small_bank_profile(device)
     estimator, estimator_launches = phase_online_estimator(device, seconds=args.online_seconds)
     captured, counts = {}, {}
     velocity, rate_velocity, mission_counts = phase_velocity_bank(device, args.velocity_bank, captured, counts)
@@ -2854,6 +2918,7 @@ def main() -> int:
         "stepped_mission_ticks_per_s": rate_stepped, "bank": args.bank,
         "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
         "k2_k5_alone_ms": k2_k5_alone, "k11_k4_alone_ms": k11_k4_alone,
+        "k7_k10_alone_ms": k7_k10_alone, "small_bank_profile": small_profile,
         "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,

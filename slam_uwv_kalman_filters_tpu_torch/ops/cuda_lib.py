@@ -140,6 +140,7 @@ KERNELS = {
         # do_predict, cov_t, mu_t, vel_t, dt (double), q9* (double), n_upd, models*, z**, r**,
         # dir**, org**, thr* (double), m2**, acc**, nu**, cov_out, mu_out, nb, stream
         (_I32, _P, _P, _P, _F64, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb
     ),
     "solve_spd": Kernel(
         "solve_spd", "slam_solve_spd", "csrc/solve_spd.cu",
@@ -155,6 +156,7 @@ KERNELS = {
         "indirect_markers", "slam_indirect_markers", "csrc/indirect_markers.cu",
         # cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal, k, cov_out, mu_out, m2, nu_t, nb, stream
         (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb
     ),
     "pose_markers": Kernel(
         "pose_markers", "slam_pose_markers", "csrc/pose_markers.cu",

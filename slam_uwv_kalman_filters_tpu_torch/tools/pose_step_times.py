@@ -63,16 +63,16 @@ def operands(nb: int, dtype, device, seed: int = 0):
     return pf.to_lanes(bs), p, pf.banked_predict_operands(bp, DT, dtype)
 
 
-def device_ms(fn, reps: int) -> float:
-    """Median of three rounds of ``reps`` launches, held behind ~0.1 ms of
-    spin per launch while the host enqueues them."""
+def device_ms(fn, reps: int, hold: int = 200_000) -> float:
+    """Median of three rounds of ``reps`` launches, held behind ``hold`` spin
+    cycles per launch (~0.1 ms by default) while the host enqueues them."""
     fn()
     torch.cuda.synchronize()
     rounds = []
     for _ in range(3):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(200_000 * reps)
+        torch.cuda._sleep(hold * reps)
         start.record()
         for _ in range(reps):
             fn()

@@ -975,6 +975,77 @@ def test_indirect_wrappers_launch_and_count(device):
     assert k9.launches == before9 + 1
 
 
+def small_digests(device, outputs: dict | None = None) -> dict:
+    """sha256 (first 16 hex digits) of K7's outputs — covariance, mean, NIS,
+    gate, innovation — for the four cases of :func:`bottom_operands`, K9's on
+    :func:`indirect_operands` and K10's with 1 and 4 corners, shared and
+    per-instance marker data, at bank ``NB``, float32 and float64. The
+    operands are made on the CPU (a float64 matrix product on the card
+    rounds differently from call to call) and moved to the card.
+    ``outputs``, when given, also receives each key's output tensors on the
+    CPU. It calls only the wrappers' signatures, so it hashes an earlier
+    build of the package as well."""
+    from slam_uwv_kalman_filters_tpu_torch.models import bottom_fused as bf
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+
+    out = {}
+
+    def record(key, tensors):
+        h = hashlib.sha256()
+        kept = [x.detach().cpu() for x in tensors]
+        for x in kept:
+            h.update(x.numpy().tobytes())
+        out[key] = h.hexdigest()[:16]
+        if outputs is not None:
+            outputs[key] = kept
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        for case, args in bottom_operands(device, dtype).items():
+            cov, mu, infos = bf.bottom_step_lanes_cuda(*args)
+            record(f"bottom_step[{case}],{name}", [cov, mu, *(x for info in infos for x in info)])
+        for k, per_instance in ((1, False), (1, True), (4, False), (4, True)):
+            k9, k10 = (tuple(x.to(device) for x in args)
+                       for args in indirect_operands("cpu", dtype, nb=NB, k=k, per_instance=per_instance))
+            if (k, per_instance) == (1, False):
+                record(f"indirect_predict,{name}", ifu.indirect_predict_lanes_cuda(*k9))
+            form = "per-instance" if per_instance else "shared"
+            record(f"indirect_markers[k={k},{form}],{name}", ifu.indirect_markers_lanes_cuda(*k10))
+    return out
+
+
+# small_digests of the build before K7 and K10 moved to a group of lanes per
+# instance (the one-thread kernels; NVIDIA H100 80GB HBM3, 700 W, nvcc 12.9,
+# PyTorch 2.11 with CUDA 12.8); K9 is not redesigned there and is held to its
+# bits too
+SMALL_DIGESTS = {
+    "bottom_step[normal],float32": "8a0afe5ff94e72bd",
+    "bottom_step[normal],float64": "5950196a60fb5998",
+    "bottom_step[predict+range+normal],float32": "03f4b5e9f60de8a0",
+    "bottom_step[predict+range+normal],float64": "b7f041fb4d2e3f3c",
+    "bottom_step[predict],float32": "65aaec6d2f762819",
+    "bottom_step[predict],float64": "0d827def054bedf3",
+    "bottom_step[range],float32": "a1aaaaa82be76ecd",
+    "bottom_step[range],float64": "b83e72c833c1dd3a",
+    "indirect_markers[k=1,per-instance],float32": "368f27513e125f11",
+    "indirect_markers[k=1,per-instance],float64": "2f1f75afd6cd37c6",
+    "indirect_markers[k=1,shared],float32": "01e6964792d59b1d",
+    "indirect_markers[k=1,shared],float64": "1429c1df3e76578a",
+    "indirect_markers[k=4,per-instance],float32": "80aad9cf337e7990",
+    "indirect_markers[k=4,per-instance],float64": "35cd821299332085",
+    "indirect_markers[k=4,shared],float32": "12c805e4bfa49a0e",
+    "indirect_markers[k=4,shared],float64": "1ec028b2803e2398",
+    "indirect_predict,float32": "56ea0b5421f7da91",
+    "indirect_predict,float64": "7744054a0e8025b9",
+}
+
+
+def test_k7_k9_k10_bit_identical_to_the_one_thread_kernels(device):
+    got = small_digests(device)
+    differ = {k: (got[k], v) for k, v in SMALL_DIGESTS.items() if got.get(k) != v}
+    assert not differ, differ
+
+
 # ---------------------------------------------------------------------------
 # K11 (the PoseUKF visual-marker update with the 59-DOF augmentation)
 # ---------------------------------------------------------------------------
