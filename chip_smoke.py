@@ -135,15 +135,21 @@ csrc`` and then, in order:
    for n = 1 … 64 and at bank 256 for n = 53;
 28. (after 12) times K11 with 4 corners and K4 at m = 6 on the card alone at
    bank 1 and 256 (live vehicles near a marked structure; a generic update
-   of a small bank), each held to its plain version first.
+   of a small bank), each held to its plain version first;
+29. (after 28) times the small filters' kernels on the card alone on their
+   banks' own operands (``tools/small_kernel_times.py``): K6 (predict +
+   DVL), K7 (predict + range), K9 and K10 (1 and 4 corners) at banks 1, 256,
+   16 384 and 65 536, each design a kernel picks among them, each held to
+   its plain version first.
 
 A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
 calls held behind a spin kernel, so the host's time to enqueue each is
 hidden); the ``ptxas`` lines of the warp-per-matrix and warp-per-instance
-kernels K1, K2, K3, K4, K5, K8, K11 and K12 (registers, stack frame, spills)
-are printed on their own, and the warps a block K3 (per model) and K12
-choose at the main paths' banks, and K2 (both modes), K4 (m = 6), K5 and K11
-with the warps an SM keeps.
+kernels K1, K2, K3, K4, K5, K8, K11 and K12 and of each design of the small
+filters' K6, K7, K9 and K10 (registers, stack frame, spills) are printed on
+their own, and the warps a block K3 (per model) and K12 choose at the main
+paths' banks, and K2 (both modes), K4 (m = 6), K5, K11 and the design K6,
+K7, K9 and K10 pick at each bank with the warps an SM keeps.
 
 Lines before the last carry the card (``nvidia-smi`` name and power limit),
 the build time, every check with its limit, both mission rates, the idle
@@ -219,11 +225,16 @@ PROBE_LIMIT = 1e-5
 BOTTOM_BANK = 65536
 INDIRECT_BANK = 65536
 SMOOTHER_BANK = 256
-# the warp-per-matrix and warp-per-instance kernels and K7's and K10's
-# designs, whose ptxas lines are printed on their own
+# the warp-per-matrix and warp-per-instance kernels and the small filters'
+# designs (K6, K7, K9, K10), whose ptxas lines are printed on their own
 WARP_KERNELS = ("sigma_deltas_kernel", "solve_spd_kernel", "cholesky_kernel", "pose_update_model_kernel",
                 "pose_predict_kernel", "pose_step_kernel", "pose_markers_kernel", "pose_update_tail_kernel",
-                "bottom_step_group_kernel", "bottom_step_thread_kernel", "indirect_markers_kernel")
+                "bottom_step_group_kernel", "bottom_step_thread_kernel", "indirect_markers_kernel",
+                "velocity_step_group_kernel", "velocity_step_thread_kernel", "indirect_predict_group_kernel",
+                "indirect_predict_thread_kernel")
+# the banks at which the small filters' kernels are timed alone: both sides
+# of every design switch
+SMALL_ALONE_BANKS = (1, 256, 16384, 65536)
 # the visual marker of tests/test_full_mission.py: four corners of a 0.3 m
 # square, a camera whose optical axis is body +x, a 1e-6·I pose prior
 MARKER_CORNERS = ((0.15, 0.15, 0.0), (-0.15, 0.15, 0.0), (-0.15, -0.15, 0.0), (0.15, -0.15, 0.0))
@@ -235,15 +246,15 @@ def log(msg: str) -> None:
 
 
 def _warps(name: str, dtype, *sizes) -> int:
-    """Warps a block kernel ``name`` (K2, K3, K4, K5, K7, K10, K11, K12) launches with at ``sizes``."""
+    """Warps a block kernel ``name`` (K2–K7, K9–K12) launches with at ``sizes``."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
     return cuda_lib.KERNELS[name].warps_per_block(dtype, *sizes)
 
 
 def _resident(name: str, dtype, *sizes) -> int:
-    """Warps an SM keeps resident at that block size (K2, K4, K5, K7, K10,
-    K11: the occupancy calculator's answer)."""
+    """Warps an SM keeps resident at that block size (K2, K4–K7, K9–K11:
+    the occupancy calculator's answer)."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
 
     return cuda_lib.KERNELS[name].resident_warps(dtype, *sizes)
@@ -1316,38 +1327,6 @@ def step_operands(ls, params, dtype, device, gen):
             z_ts, r_ts, torch.cat(s6).contiguous())
 
 
-def velocity_setup(nb: int, dtype, device, gen: torch.Generator | None = None):
-    """bench.py's small-filter configuration (BASELINE configs[0]): the
-    VelocityUKF at rest with thruster efforts [60, 0, 0, 0, 0, 1] on the
-    default vehicle; with ``gen``, moved means, correlated covariances,
-    efforts, gyro rates and tracker orientations per instance."""
-    from slam_uwv_kalman_filters_tpu_torch.models import velocity_ukf as vu
-    from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as dyn
-    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
-    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
-
-    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
-    mu = vu.VelocityState(velocity=t([0.0, 0.0, 0.0]), z_position=t([0.0]))
-    state, params = vu.init(mu, torch.eye(4, dtype=dtype, device=device) * 0.1,
-                            bank.tree_map(lambda a: a.to(dtype), dyn.default_uwv_parameters(device=device)))
-    state = vu.integrate_body_efforts(state, t([60.0, 0.0, 0.0, 0.0, 0.0, 1.0]))
-    bs = bank.replicate(state, nb)
-    if gen is not None:
-        rn = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64, device=device).to(dtype)
-        g = rn(nb, 4, 4)
-        av = 0.05 * rn(nb, 3)
-        bs = bs._replace(
-            mu=vu.VelocityState(0.5 * rn(nb, 3), 2.0 * rn(nb, 1)),
-            cov=0.02 * (g @ g.transpose(1, 2) / 4 + torch.eye(4, dtype=dtype, device=device)),
-            body_efforts=30.0 * rn(nb, 6), angular_velocity=av,
-            model_state=bs.model_state._replace(
-                position=rn(nb, 3), orientation=mf.so3_boxplus(bs.model_state.orientation, 0.3 * rn(nb, 3)),
-                linear_velocity=0.5 * rn(nb, 3), angular_velocity=av),
-        )
-        params = params._replace(model=params.model._replace(weight=t(1000.0), cog=t([0.01, -0.02, 0.05])))
-    return bs, params
-
-
 def phase_checks_steps(device):
     """K5 and K6 against their plain versions at bank 300, float32 and
     float64; K5 on the six-model chain (a rejected gate, NaN in the invalid
@@ -1357,6 +1336,7 @@ def phase_checks_steps(device):
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
+    from slam_uwv_kalman_filters_tpu_torch.tools import small_kernel_times as skt
 
     nb = 300
     for dtype in (torch.float32, torch.float64):
@@ -1384,7 +1364,7 @@ def phase_checks_steps(device):
             f"limit={LIMITS[dtype]:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("K5 disagrees with the K2 → K3 chain")
-        vs, vp = velocity_setup(nb, dtype, device, gen)
+        vs, vp = skt.velocity_setup(nb, dtype, device, gen)
         vl = vf.to_lanes(vs)
         z = (vl.mu_t[:3] + 0.05).contiguous()
         z[:, 0] += 3.0  # instance 0 fails the χ²-95 gate
@@ -1572,26 +1552,31 @@ def phase_k11_k4_alone(device) -> dict:
     return out
 
 
-def phase_k7_k10_alone(device) -> dict:
-    """K7 (predict + one range) and K10 (1 and 4 corners) at bank 1, 256 and
-    65 536 on the card alone (:func:`_device_ms`, ~0.5 ms of spin a call:
-    K7's wrapper packs its chain on the host), float32, on the BottomUKF and
+def phase_small_alone(device) -> dict:
+    """K6 (predict + DVL), K7 (predict + one range), K9 and K10 (1 and 4
+    corners) at banks ``SMALL_ALONE_BANKS`` on the card alone
+    (:func:`_device_ms`, ~0.5 ms of spin a call: K6's and K7's wrappers pack
+    their chains on the host), float32, on the VelocityUKF, BottomUKF and
     IndirectPoseUKF banks' own operands (one step of each bank's entry
     points, ``tools/small_kernel_times.py``), each first held to its plain
-    version on the same operands. Returns {"<kernel>_bank_<N>": ms}."""
+    version on the same operands; with the warps a block the design picked
+    at each bank launches (its group size: 4 × 32 / warps for a group of
+    lanes; 128 one thread an instance). Returns {"<kernel>_bank_<N>": ms}."""
     from slam_uwv_kalman_filters_tpu_torch.tools import small_kernel_times as skt
 
     out = {}
-    for nb in (1, 256, BOTTOM_BANK):
-        calls = {"bottom_step": skt.bottom_operands(nb, torch.float32, device)}
+    for nb in SMALL_ALONE_BANKS:
+        calls = {"velocity_step": skt.velocity_operands(nb, torch.float32, device),
+                 "bottom_step": skt.bottom_operands(nb, torch.float32, device),
+                 "indirect_predict": skt.indirect_predict_operands(nb, torch.float32, device)}
         for k in (1, 4):
             calls[f"indirect_markers[k={k}]"] = skt.indirect_operands(nb, k, torch.float32, device)
         for label, args in calls.items():
             name = label.split("[")[0]
-            compare(name, f"alone bank={nb} {label}", args)
+            compare(name, f"alone bank={nb} {label} ({_warps(name, torch.float32, nb)} warps a block)", args)
             out[f"{label}_bank_{nb}"] = _device_ms(lambda: _pair(name)[0](*args), cycles=1_000_000)
         del calls
-    log("K7 and K10 on the card alone, float32: "
+    log("K6, K7, K9 and K10 on the card alone, float32: "
         + " ".join(f"{k}={'not measured' if v is None else f'{v:.5f} ms'}" for k, v in out.items()))
     return out
 
@@ -1703,18 +1688,15 @@ def phase_velocity_bank(device, nb: int, captured: dict, counts: dict, steps: in
     """The fourth main path: bench.py's small-filter step (VelocityUKF
     predict(0.05) + DVL z = [0.3, 0, 0], R = 1e-3·I) as one K6 launch per step
     on lanes state at bank ``nb``, float32 (``velocity_fused.params_block``
-    keeps the parameter block from step to step): one warm step that records K6's
+    keeps the parameter block from step to step;
+    ``tools/small_kernel_times.velocity_bank``): one warm step that records K6's
     operands, then ``steps`` timed steps between a zeroing and a reading of
     the counters."""
     from slam_uwv_kalman_filters_tpu_torch.models import velocity_fused as vf
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.tools import small_kernel_times as skt
 
-    dtype = torch.float32
-    bs, params = velocity_setup(nb, dtype, device)
-    ls = vf.to_lanes(bs)
-    z = torch.tensor([0.3, 0.0, 0.0], dtype=dtype, device=device).expand(nb, 3)
-    r = torch.eye(3, dtype=dtype, device=device) * 1e-3
-    step = lambda ls: vf.step_lanes(ls, params, 0.05, [vf.StepUpdate("dvl", z, r)])[0]
+    bs, ls, step = skt.velocity_bank(nb, torch.float32, device)
     with capture_operands(captured, counts, keep=lambda key: key.startswith("velocity_step")):
         ls = step(ls)
     torch.cuda.synchronize()
@@ -2755,7 +2737,7 @@ def main() -> int:
         log(f"warps a block / resident an SM (the design picked for the bank), {str(dtype).split('.')[-1]}: "
             + "; ".join(f"{name} " + ", ".join(f"bank {nb} {_warps(name, dtype, nb)} / {_resident(name, dtype, nb)}"
                                                for nb in (BOTTOM_BANK, 16384, 4096, 256, 1))
-                        for name in ("bottom_step", "indirect_markers")))
+                        for name in ("velocity_step", "bottom_step", "indirect_predict", "indirect_markers")))
 
     phase_checks(device)
     phase_mean_accuracy(device)
@@ -2824,7 +2806,7 @@ def main() -> int:
     latency, latency_launches = phase_online_latency(device)
     k2_k5_alone = phase_k2_k5_alone(device)
     k11_k4_alone = phase_k11_k4_alone(device)
-    k7_k10_alone = phase_k7_k10_alone(device)
+    small_alone = phase_small_alone(device)
     small_profile = phase_small_bank_profile(device)
     estimator, estimator_launches = phase_online_estimator(device, seconds=args.online_seconds)
     captured, counts = {}, {}
@@ -2918,7 +2900,7 @@ def main() -> int:
         "stepped_mission_ticks_per_s": rate_stepped, "bank": args.bank,
         "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
         "k2_k5_alone_ms": k2_k5_alone, "k11_k4_alone_ms": k11_k4_alone,
-        "k7_k10_alone_ms": k7_k10_alone, "small_bank_profile": small_profile,
+        "small_kernels_alone_ms": small_alone, "small_bank_profile": small_profile,
         "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,

@@ -90,15 +90,6 @@ struct BotScal {
   T q[9];
 };
 
-// v[p] with p a lane's runtime index, by selects (no local array)
-template <typename T, int K>
-__device__ __forceinline__ T pick(const T (&v)[K], int p) {
-  T out = v[0];
-#pragma unroll
-  for (int q = 1; q < K; ++q) out = p == q ? v[q] : out;
-  return out;
-}
-
 // the tangent deltas dl[row][point] of the 7 sigma points of P
 template <typename T>
 __device__ __forceinline__ void bottom_deltas(const T (&P)[kBotDof][kBotDof], T (&dl)[kBotDof][kBotSig]) {

@@ -78,15 +78,21 @@ __device__ __forceinline__ Quat<T> qconj(const Quat<T>& a) {
   return {a.w, -a.x, -a.y, -a.z};
 }
 
-// rotation vector -> quaternion (MTK half-angle convention, Taylor-guarded)
+// rotation vector -> quaternion (MTK half-angle convention, Taylor-guarded),
+// given the squared angle theta2 = |v|² (qexp_sq; for a caller that rounds
+// it its own way) or making it (qexp)
 template <typename T>
-__device__ __forceinline__ Quat<T> qexp(T vx, T vy, T vz) {
-  const T theta2 = vx * vx + vy * vy + vz * vz;
+__device__ __forceinline__ Quat<T> qexp_sq(T theta2, T vx, T vy, T vz) {
   const T theta = d_sqrt(theta2);
   const bool small = theta2 < T(1e-12);
   const T safe = small ? T(1) : theta;
   const T sinc = small ? T(0.5) - theta2 / T(48) : d_sin(T(0.5) * safe) / safe;
   return {d_cos(T(0.5) * theta), sinc * vx, sinc * vy, sinc * vz};
+}
+
+template <typename T>
+__device__ __forceinline__ Quat<T> qexp(T vx, T vy, T vz) {
+  return qexp_sq(vx * vx + vy * vy + vz * vz, vx, vy, vz);
 }
 
 // quaternion -> rotation vector (hemisphere w >= 0, Taylor-guarded), as

@@ -1,11 +1,13 @@
-// The group-of-lanes core of the small-filter kernels K7 (BottomUKF step, on
-// small banks) and K10 (IndirectPoseUKF marker update).
+// The group-of-lanes core of the small-filter kernels K6 (VelocityUKF step)
+// and K7 (BottomUKF step), on small banks, K9 (IndirectPoseUKF predict) and
+// K10 (IndirectPoseUKF marker update).
 //
 // Shares out over G lanes per instance what a one-thread design does on one
 // thread: the Crout factor and the Kalman tail of
 // small_ukf.cuh (the TPU helpers models/velocity_fused.py::_draw_deltas and
-// ::_kalman_tail) and the S² Karcher mean of s2.cuh (models/bottom_fused.py::
-// _s2_karcher_mean). A 3- or 12-DOF filter has too little work to keep a
+// ::_kalman_tail), the S² Karcher mean of s2.cuh (models/bottom_fused.py::
+// _s2_karcher_mean) and the SO(3) one of so3.cuh (models/indirect_fused.py::
+// _so3_karcher_mean). A 3- to 12-DOF filter has too little work to keep a
 // warp's 32 lanes busy, so a warp holds 32/G instances, G a power of two (at
 // most 32): the lanes of a group share out an instance's sigma points, its
 // factor's rows, its sums and its gain rows. A wide group shortens one
@@ -18,7 +20,10 @@
 // (small_ukf.cuh's and s2.cuh's helpers are called, not copied), every sum
 // over the sigma points or over k runs in ascending order on one lane, and a
 // value that every lane needs and that is cheap is made by every lane on
-// identical values rather than broadcast.
+// identical values rather than broadcast. Where the one-thread build fused a
+// product into the sum that reads it, and the group moves that product to
+// another lane, the factors move and the sum's lane writes the FMA out
+// (group_so3_mean).
 //
 // Shared memory: the kernels stage each block's bank-last loads and stores
 // (stage_in / stage_out: consecutive threads take consecutive instances, so
@@ -29,6 +34,7 @@
 
 #include "s2.cuh"
 #include "small_ukf.cuh"
+#include "so3.cuh"
 
 namespace slam {
 
@@ -152,6 +158,15 @@ __device__ __forceinline__ void group_crout(const Group<G>& grp, const T* A, T* 
   }
 }
 
+// v[p] with p a lane's runtime index, by selects (no local array)
+template <typename T, int K>
+__device__ __forceinline__ T pick(const T (&v)[K], int p) {
+  T out = v[0];
+#pragma unroll
+  for (int q = 1; q < K; ++q) out = p == q ? v[q] : out;
+  return out;
+}
+
 // ---- the group S² Karcher mean -----------------------------------------------
 
 // all[p] = the value that lane p mod G holds as mine[p / G], p < K (lane g
@@ -221,6 +236,57 @@ __device__ __forceinline__ void group_s2_mean_tile(const Group<G>& grp, const T*
     for (int a = 0; a < 3; ++a) m[a] = next[a];
     grp.sync();  // every lane has read the terms before the next iteration rewrites them
   }
+}
+
+// ---- the group SO(3) Karcher mean -------------------------------------------
+
+// qconj(y)·y as the one-thread build rounds it where it knows both factors
+// are one quaternion (its SASS: each product that appears twice made once)
+template <typename T>
+__device__ __forceinline__ Quat<T> qmul_conj_self(const Quat<T>& y) {
+  const T wx = mul_rn(y.w, y.x), wy = mul_rn(y.w, y.y), wz = mul_rn(y.w, y.z);
+  return {fma_rn(y.z, y.z, fma_rn(y.y, y.y, fma_rn(y.w, y.w, mul_rn(y.x, y.x)))),
+          fma_rn(y.y, y.z, fma_rn(-y.y, y.z, add_rn(wx, -wx))),
+          fma_rn(-y.x, y.z, add_rn(fma_rn(y.x, y.z, wy), -wy)),
+          add_rn(fma_rn(y.x, y.y, fma_rn(-y.x, y.y, wz)), -wz)};
+}
+
+// The equal-weight mean of K unit quaternions, seeded from point 0, a fixed
+// ITERS iterations of m ← m ⊞ mean_p(y_p ⊟ m) (so3.cuh::so3_karcher_mean):
+// lane g holds points g, g + G, ... in y[0], y[1], ... (past K, any point).
+// Each lane makes the log maps of its points as qlog_parts' scale and
+// vector (point 0's first one, y_0 ⊟ y_0, as qmul_conj_self), every lane
+// gathers them by shuffle and sums the terms p rising as fma(scale_p, v_p,
+// sum), the one-thread build's contraction of sum += scale·v, then makes
+// the ⊞ on identical values.
+template <typename T, int K, int ITERS, int G, int Q>
+__device__ __forceinline__ Quat<T> group_so3_mean(const Group<G>& grp, const Quat<T> (&y)[Q]) {
+  Quat<T> m{grp.shfl(y[0].w, 0), grp.shfl(y[0].x, 0), grp.shfl(y[0].y, 0), grp.shfl(y[0].z, 0)};
+  const T inv_k = T(1) / T(K);
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    T sc[Q], vx[Q], vy[Q], vz[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      Quat<T> r = qmul(qconj(m), y[q]);
+      if (it == 0 && q == 0) r = grp.g == 0 ? qmul_conj_self(y[0]) : r;
+      qlog_parts(r, sc[q], vx[q], vy[q], vz[q]);
+    }
+    T a[K], ax[K], ay[K], az[K];
+    group_gather(grp, sc, a);
+    group_gather(grp, vx, ax);
+    group_gather(grp, vy, ay);
+    group_gather(grp, vz, az);
+    T sx = T(0), sy = T(0), sz = T(0);
+#pragma unroll
+    for (int p = 0; p < K; ++p) {
+      sx = fma_rn(a[p], ax[p], sx);
+      sy = fma_rn(a[p], ay[p], sy);
+      sz = fma_rn(a[p], az[p], sz);
+    }
+    m = so3_boxplus(m, sx * inv_k, sy * inv_k, sz * inv_k, T(1));
+  }
+  return m;
 }
 
 // ---- the group Kalman tail of a 2-dimensional measurement ---------------------

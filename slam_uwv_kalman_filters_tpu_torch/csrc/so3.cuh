@@ -13,13 +13,19 @@
 
 namespace slam {
 
-// q ⊞ (scale·d) = q ⊗ Exp(scale·d), renormalized by 1/sqrt (not rsqrt: its
-// error would land on the unit quaternion directly)
+// q ⊗ e renormalized by 1/sqrt (not rsqrt: its error would land on the unit
+// quaternion directly)
 template <typename T>
-__device__ __forceinline__ Quat<T> so3_boxplus(const Quat<T>& q, T dx, T dy, T dz, T scale) {
-  const Quat<T> y = qmul(q, qexp(dx * scale, dy * scale, dz * scale));
+__device__ __forceinline__ Quat<T> so3_times(const Quat<T>& q, const Quat<T>& e) {
+  const Quat<T> y = qmul(q, e);
   const T inv = T(1) / d_sqrt(y.w * y.w + y.x * y.x + y.y * y.y + y.z * y.z);
   return {inv * y.w, inv * y.x, inv * y.y, inv * y.z};
+}
+
+// q ⊞ (scale·d) = q ⊗ Exp(scale·d), renormalized
+template <typename T>
+__device__ __forceinline__ Quat<T> so3_boxplus(const Quat<T>& q, T dx, T dy, T dz, T scale) {
+  return so3_times(q, qexp(dx * scale, dy * scale, dz * scale));
 }
 
 // a ⊟ b = Log(b⁻¹ ⊗ a)

@@ -134,6 +134,7 @@ KERNELS = {
         # do_predict, cov_t, mu_t, eff_t, av_t, trk_t, scal, n_upd, models*, z**, r**,
         # thr* (double), m2**, acc**, nu**, cov_out, mu_out, trk_out, nb, stream
         (_I32, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb (the predicting launch)
     ),
     "bottom_step": Kernel(
         "bottom_step", "slam_bottom_step", "csrc/bottom_step.cu",
@@ -151,6 +152,7 @@ KERNELS = {
         "indirect_predict", "slam_indirect_predict", "csrc/indirect_predict.cu",
         # cov_t, mu_t, scal, cov_out, mu_out, nb, stream
         (_P, _P, _P, _P, _P, _I64, _P),
+        warps=(_I64,), resident=True,  # nb
     ),
     "indirect_markers": Kernel(
         "indirect_markers", "slam_indirect_markers", "csrc/indirect_markers.cu",
