@@ -140,7 +140,18 @@ csrc`` and then, in order:
    banks' own operands (``tools/small_kernel_times.py``): K6 (predict +
    DVL), K7 (predict + range), K9 and K10 (1 and 4 corners) at banks 1, 256,
    16 384 and 65 536, each design a kernel picks among them, each held to
-   its plain version first.
+   its plain version first;
+30. (last) runs the fleet-operations layer at bank 131 072, float32
+   (``phase_fleet_ops``): the ported fleet Monte-Carlo example
+   (``examples/fleet_monte_carlo.py``, 2 timed seconds, counted: 301 K2, 16
+   K3) with its own checks (worst velocity error < 0.05 m/s, 1310 poisoned
+   instances restarted, every instance healthy after the heal), its lanes
+   second first held to the bank-first route's bits; 100 ticks plain and
+   100 under ``failover.guarded``, and the selects under
+   ``torch.cuda.set_sync_debug_mode("error")``; a checkpoint round trip bit
+   for bit and a restart from the restored snapshot; a one-rank NCCL
+   group's reductions against the local ones; 5 ticks under
+   ``tracing.trace`` naming K2's and K3's kernels.
 
 A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
 calls held behind a spin kernel, so the host's time to enqueue each is
@@ -157,7 +168,9 @@ share, the fleet ATE, the trajectory differences, the BottomUKF and
 IndirectPoseUKF rates, the smoother's times and ATE, the marker-aided rate
 and the marker trajectory's differences, the measured FMA and memory
 ceilings, the delayed fixes' times and shares, the class's per-tick
-latency and pose differences, each new phase's seconds, and a JSON object
+latency and pose differences, the fleet-operations figures (filter-steps/s,
+NEES, ms a tick plain and guarded, checkpoint bytes and seconds), each new
+phase's seconds, and a JSON object
 with the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 
@@ -225,6 +238,8 @@ PROBE_LIMIT = 1e-5
 BOTTOM_BANK = 65536
 INDIRECT_BANK = 65536
 SMOOTHER_BANK = 256
+# the fleet-operations phase's bank: the fleet example at the mission second's scale
+FLEET_OPS_BANK = 131072
 # the warp-per-matrix and warp-per-instance kernels and the small filters'
 # designs (K6, K7, K9, K10), whose ptxas lines are printed on their own
 WARP_KERNELS = ("sigma_deltas_kernel", "solve_spd_kernel", "cholesky_kernel", "pose_update_model_kernel",
@@ -2646,6 +2661,236 @@ def phase_pose_class(device, ticks: int, captured: dict, counts: dict):
                       "position_diff_m": dpos, "orientation_diff_rad": dang}
 
 
+def _bits_equal(a, b) -> bool:
+    """Bit-for-bit equality of two trees of tensors (dtype, shape and bytes)."""
+    from slam_uwv_kalman_filters_tpu_torch.parallel.bank import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.device == y.device
+        and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)) for x, y in zip(la, lb))
+
+
+def phase_fleet_ops(device, nb: int = FLEET_OPS_BANK):
+    """The fleet-operations layer at bank ``nb``, float32: (a) the ported
+    fleet example (``examples.fleet_monte_carlo.main``, 2 timed seconds
+    after a first one, then the heal of 1% poisoned instances) with the
+    counters zeroed just before and read just after (301 K2, 16 K3), after
+    holding its lanes-layout second to the bank-first route's bits; (b) 100
+    ticks of the heal's bank-first step plain and 100 under
+    ``failover.guarded`` in turns (50 plain, 50 guarded, 50 guarded, 50
+    plain), and ``health_mask``, ``select_where``, ``mask_rows`` and
+    ``reseed_where`` under ``torch.cuda.set_sync_debug_mode("error")``; (c)
+    the bank through ``checkpoint.save`` and ``restore`` in a temporary
+    directory, bit for bit, then the poisoned instances restarted from the
+    restored snapshot by ``self_healing_step``; (d) a one-rank NCCL group
+    (file rendezvous) whose ``ensemble_moments``, ``ensemble_mean`` and
+    ``acceptance_rate`` must equal the local reductions bit for bit; (e) 5
+    ticks under ``tracing.trace``, whose trace file must name K2's and K3's
+    kernels, with ``Throughput``'s rate beside the host clock's. Returns
+    (the launches of (a), the figures)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from slam_uwv_kalman_filters_tpu_torch.examples import fleet_monte_carlo as fleet
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank, checkpoint, failover, sharding
+    from slam_uwv_kalman_filters_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    dtype, out = torch.float32, {"bank": nb}
+    params_rate, dt = 100.0, 0.01
+    meas_cov = torch.eye(3, dtype=dtype, device=device) * fleet.DVL_VAR
+    z = torch.tensor(fleet.TRUE_VELOCITY, dtype=dtype, device=device).expand(nb, 3).contiguous()
+
+    # the example's lanes second against the bank-first route, 3 ticks with
+    # the DVL on ticks 0 and 2: the same bits
+    bs, params, _ = fleet.fleet_setup(nb, params_rate, 7, device, dtype)
+    lanes, _ = fleet.second_of_steps(bs, params, z, z[0], dt=dt, n_ticks=3, dvl_every=2, meas_cov=meas_cov)
+    for k in range(3):
+        bs = pukf.predict_bank(bs, params, dt)
+        if k % 2 == 0:
+            bs, _ = pukf.update_velocity_bank(bs, params, z, meas_cov)
+    if not _bits_equal(lanes, bs):
+        raise AssertionError("the example's lanes second differs from the bank-first route")
+    del lanes, bs
+    torch.cuda.empty_cache()
+
+    # (a) the example, counted
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    figures = fleet.main(["--bank", str(nb), "--seconds", "2"])
+    launches = {name: k.launches for name, k in cuda_lib.KERNELS.items()}
+    a_s = time.perf_counter() - t0
+    expected = {**_NONE, "pose_predict": 3 * 100 + 1, "pose_update_model": 3 * 5 + 1}
+    log(f"fleet ops (a) example: bank={nb} {figures['filter_steps_per_s']:.6e} filter-steps/s over "
+        f"{figures['seconds']} s ({figures['wall_s']:.3f} s; first second {figures['first_second_s']:.3f} s) "
+        f"position NEES={figures['position_nees']:.4f} spread={figures['spread_m']:.4f} m worst velocity error="
+        f"{figures['worst_velocity_error']:.3e} m/s restarted {figures['n_reseeded']}/{figures['n_poisoned']} "
+        f"healthy after heal {figures['healthy_after_heal']}; K2 launches {launches['pose_predict']}, K3 "
+        f"{launches['pose_update_model']} (expected {expected['pose_predict']}, {expected['pose_update_model']}); "
+        f"{a_s:.1f} s")
+    if launches != expected:
+        raise AssertionError(f"the fleet example launched {launches}, expected {expected}")
+    if not (figures["worst_velocity_error"] < 0.05 and figures["n_reseeded"] == nb // 100 == figures["n_poisoned"]
+            and figures["healthy_after_heal"]):
+        raise AssertionError(f"the fleet example's checks failed: {figures}")
+    out["example"] = {**figures, "launches": {"pose_predict": launches["pose_predict"],
+                                              "pose_update_model": launches["pose_update_model"]}, "phase_s": a_s}
+    torch.cuda.empty_cache()
+
+    # (b) the guard's cost, and no host read in the selects
+    t0 = time.perf_counter()
+    bs, params, rng = fleet.fleet_setup(nb, params_rate, 11, device, dtype)
+    step = fleet.bank_step(params, dt, meas_cov)
+    guarded = failover.guarded(step)
+    bs, info = step(bs, z)
+    bs, healthy, info = guarded(bs, z)
+    plain_s = guard_s = 0.0
+    for turn in ("plain", "guarded", "guarded", "plain"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(50):
+            if turn == "plain":
+                bs, info = step(bs, z)
+            else:
+                bs, healthy, info = guarded(bs, z)
+        torch.cuda.synchronize()
+        if turn == "plain":
+            plain_s += time.perf_counter() - t1
+        else:
+            guard_s += time.perf_counter() - t1
+    plain_ms, guard_ms = 10 * plain_s, 10 * guard_s  # per tick: 100 ticks each
+    prev = step(bs, z)[0]
+    donor = bank.tree_map(lambda a: a[0], prev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mask = failover.health_mask(bs, max_cov_trace=1e6)
+        picked = bank.select_where(mask, bs, prev)
+        scrubbed = bank.mask_rows(mask, info)
+        reseeded = failover.reseed_where(bs, ~mask, donor)
+        reseeded_bank = failover.reseed_where(bs, ~mask, prev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (bool(mask.all()) and _bits_equal(picked, bs) and _bits_equal(reseeded, bs)
+            and _bits_equal(reseeded_bank, bs) and _bits_equal(scrubbed, info)):
+        raise AssertionError("the selects on a healthy bank changed it")
+    b_s = time.perf_counter() - t0
+    log(f"fleet ops (b) guard: bank={nb} bank-first step (K2 + K3) {plain_ms:.3f} ms a tick plain, "
+        f"{guard_ms:.3f} ms under failover.guarded (100 ticks each, in turns): overhead "
+        f"{100 * (guard_ms / plain_ms - 1):+.2f}%; health_mask, select_where, mask_rows, reseed_where (single and "
+        f"bank donor) ran under set_sync_debug_mode('error'): no synchronizing call; {b_s:.1f} s")
+    out["guard"] = {"plain_ms_per_tick": plain_ms, "guarded_ms_per_tick": guard_ms,
+                    "overhead_pct": 100 * (guard_ms / plain_ms - 1), "no_host_read": True, "phase_s": b_s}
+    del picked, scrubbed, reseeded, reseeded_bank, prev, donor
+    torch.cuda.empty_cache()
+
+    # (c) checkpoint round trip, then restart the poisoned from the snapshot
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fleet_ops_")
+    try:
+        path = os.path.join(tmp, "bank.msgpack")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        checkpoint.save(path, bs)
+        save_s = time.perf_counter() - t1
+        nbytes = os.path.getsize(path)
+        t1 = time.perf_counter()
+        snap = checkpoint.restore(path, bs)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        leftovers = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not _bits_equal(snap, bs) or leftovers != ["bank.msgpack"]:
+        raise AssertionError(f"the checkpoint round trip is not bit for bit (files {leftovers})")
+    poisoned, dead_idx = fleet.poison(bs, rng)
+    healed, heal_info, _ = failover.self_healing_step(step)(poisoned, snap, z)
+    n_reseeded, healthy_all = int(heal_info.n_reseeded), bool(failover.health_mask(healed).all())
+    dead = torch.as_tensor(dead_idx, device=device)
+    if not (n_reseeded == len(dead_idx) == nb // 100 and healthy_all
+            and _bits_equal(bank.tree_map(lambda a: a[dead], healed), bank.tree_map(lambda a: a[dead], snap))):
+        raise AssertionError(f"the heal from the restored snapshot restarted {n_reseeded}/{len(dead_idx)}, "
+                             f"healthy {healthy_all}")
+    c_s = time.perf_counter() - t0
+    log(f"fleet ops (c) checkpoint: bank={nb} {nbytes} bytes; save {save_s:.3f} s "
+        f"({nbytes / save_s / 1e9:.3f} GB/s), restore {restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s) "
+        f"onto the card, bit for bit; self_healing_step restarted {n_reseeded}/{len(dead_idx)} poisoned instances "
+        f"from the restored snapshot, health all true; {c_s:.1f} s")
+    out["checkpoint"] = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s, "n_reseeded": n_reseeded,
+                         "phase_s": c_s}
+    del snap, poisoned, healed
+    torch.cuda.empty_cache()
+
+    # (d) a one-rank NCCL group: the all_reduce path equals the local one
+    t0 = time.perf_counter()
+    pos, accepted = bs.mu.position, info.accepted
+    local = (sharding.ensemble_moments(pos), sharding.ensemble_mean(bs.mu), sharding.acceptance_rate(accepted))
+    tmp = tempfile.mkdtemp(prefix="fleet_rdzv_")
+    ifname = os.environ.get("NCCL_SOCKET_IFNAME")
+    os.environ["NCCL_SOCKET_IFNAME"] = "lo"  # the group's one rank talks to itself
+    try:
+        rank = sharding.init_multihost(f"file://{tmp}/rendezvous", 1, 0)
+        backend = dist.get_backend()
+        grouped = (sharding.ensemble_moments(pos), sharding.ensemble_mean(bs.mu), sharding.acceptance_rate(accepted))
+        torch.cuda.synchronize()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if ifname is None:
+            os.environ.pop("NCCL_SOCKET_IFNAME", None)
+        else:
+            os.environ["NCCL_SOCKET_IFNAME"] = ifname
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rank != 0 or backend != "nccl" or not _bits_equal(grouped, local):
+        raise AssertionError(f"the one-rank {backend} group's reductions differ from the local ones")
+    d_s = time.perf_counter() - t0
+    log(f"fleet ops (d) collective: one-rank {backend} group (file rendezvous): ensemble_moments, ensemble_mean "
+        f"and acceptance_rate ({local[2].item():.6f}) through all_reduce equal the local reductions bit for bit; "
+        f"{d_s:.1f} s")
+    out["collective"] = {"backend": backend, "acceptance_rate": local[2].item(), "phase_s": d_s}
+
+    # (e) a trace of 5 ticks
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fleet_trace_")
+    try:
+        tp = tracing.Throughput()
+        with tracing.trace(tmp):
+            tp.start(sync_on=bs)
+            t1 = time.perf_counter()
+            for _ in range(5):
+                with tracing.annotate("fleet_tick"):
+                    bs, info = step(bs, z)
+            tp.add(5 * nb)
+            tp_rate = tp.rate(sync_on=bs)
+            host_rate = 5 * nb / (time.perf_counter() - t1)
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        trace_bytes = len(text)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = {k: f"{k}_kernel" in text for k in ("pose_predict", "pose_update_model")}
+    if len(files) != 1 or not all(names.values()) or "fleet_tick" not in text:
+        raise AssertionError(f"the trace ({len(files)} files) does not name K2's and K3's kernels: {names}")
+    e_s = time.perf_counter() - t0
+    log(f"fleet ops (e) trace: 5 ticks at bank {nb}, one trace file of {trace_bytes} bytes naming "
+        f"pose_predict_kernel and pose_update_model_kernel; Throughput {tp_rate:.6e} filter-steps/s, host clock "
+        f"{host_rate:.6e} (both under the profiler); {e_s:.1f} s")
+    out["trace"] = {"trace_bytes": trace_bytes, "throughput_rate": tp_rate, "host_rate": host_rate, "phase_s": e_s}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase fleet ops: {out['phase_s']:.1f} s")
+    del bs, info, healthy
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def phase_k3_alone(forward: dict, mission_ms: float, mission_bank: int) -> dict:
     """K3 on the card alone (:func:`_device_ms`) on the survey smoother's
     forward operands (bank 256, float32), one model at a time, beside its
@@ -2866,6 +3111,8 @@ def main() -> int:
     del captured
     pose_class["k1_latency_ms"] = phase_k1_latency(device)
     log(f"phase PoseUKF class: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    fleet_ops_launches, fleet_ops = phase_fleet_ops(device)
 
     # launches of each main path: the counters zeroed just before it, read just after
     paths = {
@@ -2874,7 +3121,7 @@ def main() -> int:
         "velocity_bank": velocity, "bottom_bank": bottom, "survey_smoother": smoother_launches,
         "indirect_bank": indirect, "marker_mission_second": marker, "marker_trajectory": marker_trajectory,
         "cholesky_bank": cholesky_launches, "roofline": probe_launches, "delayed_fixes": delayed_launches,
-        "pose_class": class_launches,
+        "pose_class": class_launches, "fleet_ops": fleet_ops_launches,
     }
     missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
     if missing:
@@ -2907,7 +3154,7 @@ def main() -> int:
         "marker_mission_ticks_per_s": rate_marker,
         "survey_smoother": smoother,
         "measured_fma_flops_per_s": fma, "measured_hbm_bytes_per_s": hbm,
-        "cholesky_bank_ms": cholesky_ms, "delayed_fixes": delayed, "pose_class": pose_class,
+        "cholesky_bank_ms": cholesky_ms, "delayed_fixes": delayed, "pose_class": pose_class, "fleet_ops": fleet_ops,
         "dtype": "float32", "device_idle_share": idle, "fleet_ate": fleet, "card": smi,
         "wall_s": time.perf_counter() - t_start}
     log(json.dumps(table))

@@ -6,8 +6,11 @@ with the same layout and module names so each counterpart is easy to find:
   ops/       manifold algebra, UKF core, vehicle dynamics, geodesy, kernels
   models/    PoseUKF (generic per-instance path, lanes-layout fused path),
              the mission driver and the fleet Monte-Carlo harness
-  parallel/  filter-bank helpers
-  utils/     config schema, validation, numpy <-> torch conversion
+  parallel/  filter-bank helpers, failover, checkpoints, sharding over
+             torch.distributed
+  utils/     config schema, validation, numpy <-> torch conversion,
+             metrics, tracing
+  examples/  runnable examples (python -m ...examples.<name>)
   csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a)
 
 Plain functions on tensors; state and parameters are NamedTuples of tensors

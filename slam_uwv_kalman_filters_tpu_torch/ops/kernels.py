@@ -39,12 +39,14 @@ __all__ = [
     "equilibrated_factor",
     "sigma_deltas_banked",
     "sigma_deltas_cuda",
+    "sigma_deltas_fast",
     "sigma_deltas_lanes",
     "sigma_deltas_lanes_cuda",
     "sigma_deltas_lanes_plain",
     "sigma_deltas_plain",
     "solve_spd_banked",
     "solve_spd_cuda",
+    "solve_spd_fast",
     "solve_spd_lanes_cuda",
     "solve_spd_lanes_plain",
     "solve_spd_plain",
@@ -175,6 +177,17 @@ def sigma_deltas_banked(cov: torch.Tensor) -> torch.Tensor:
     return out[0] if single else out
 
 
+def sigma_deltas_fast(cov: torch.Tensor) -> torch.Tensor:
+    """ukfom sigma deltas of one (n, n) SPD matrix or of any (..., n, n)
+    stack → (..., 2n+1, n): the leading axes flatten into one bank for
+    :func:`sigma_deltas_banked` (K1 on the card), which is what JAX's vmap
+    rule of ``sigma_deltas_fast`` does (the port has no vmap)."""
+    n = cov.shape[-1]
+    if cov.ndim == 2:
+        return sigma_deltas_banked(cov)
+    return sigma_deltas_banked(cov.reshape(-1, n, n)).reshape(*cov.shape[:-2], 2 * n + 1, n)
+
+
 # ---------------------------------------------------------------------------
 # K8: X = A⁻¹B for a bank of SPD systems
 # ---------------------------------------------------------------------------
@@ -255,6 +268,19 @@ def solve_spd_banked(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"solve_spd_banked: no path for device {spd.device}")
     return out[0] if single else out
 
+
+def solve_spd_fast(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """A⁻¹B for one SPD system (n, n), (n, k) or for stacks (..., n, n),
+    (..., n, k) whose leading axes broadcast: they flatten into one bank for
+    :func:`solve_spd_banked` (K8 on the card past ``UNROLL_LIMIT``), which
+    is what JAX's vmap rule of ``solve_spd_fast`` does."""
+    if spd.ndim == 2 and rhs.ndim == 2:
+        return solve_spd_banked(spd, rhs)
+    lead = torch.broadcast_shapes(spd.shape[:-2], rhs.shape[:-2])
+    n, k = spd.shape[-1], rhs.shape[-1]
+    a = spd.expand(*lead, n, n).reshape(-1, n, n)
+    b = rhs.expand(*lead, n, k).reshape(-1, n, k)
+    return solve_spd_banked(a, b).reshape(*lead, n, k)
 
 
 # ---------------------------------------------------------------------------

@@ -19,13 +19,16 @@ def test_port_imports_without_jax():
         "pose_update_fused, velocity_fused, velocity_ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib, dynamics, geodesy, kernels, "
         "linalg_small, manifolds, ukf\n"
-        "from slam_uwv_kalman_filters_tpu_torch.parallel import bank\n"
+        "from slam_uwv_kalman_filters_tpu_torch.parallel import bank, checkpoint, failover, sharding\n"
         "from slam_uwv_kalman_filters_tpu_torch import runtime\n"
-        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, delayed_states, device, memo, validation\n"
+        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, delayed_states, device, memo, metrics, "
+        "tracing, validation\n"
+        "from slam_uwv_kalman_filters_tpu_torch.examples import fleet_monte_carlo\n"
         "from slam_uwv_kalman_filters_tpu_torch.tools import roofline\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
-        "'slam_uwv_kalman_filters_tpu.')) or m in ('slam_uwv_kalman_filters_tpu', 'icra18_mission'))\n"
+        "'slam_uwv_kalman_filters_tpu.', 'flax', 'orbax', 'msgpack')) "
+        "or m in ('slam_uwv_kalman_filters_tpu', 'icra18_mission', 'fleet_monte_carlo'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
