@@ -57,11 +57,19 @@ csrc`` and then, in order:
    [acceleration, velocity] step per tick with a host-fresh DVL z copied to
    the card and a one-element readback, 400 ticks at bank 1 and 128;
    then times K2 (both modes) at bank 1 and 256 and K5 on that chain at bank
-   1 and 128 on the card alone, each held to its plain version first;
-13. runs the online estimator of examples/online_estimator.py --fused-step
-   on the port (bank 128, 100 Hz, 10 s; events through the port's
-   StreamPacker, forward-filled gyro) and holds its velocity error to the
-   example's 0.02 m/s;
+   1 and 128 on the card alone, each held to its plain version first, and
+   the host's cost of a kernel call (K5 at bank 1 straight to its wrapper,
+   through the entry point, and through its op, which exported programs
+   call);
+13. runs the port's online estimator example
+   (``slam_uwv_kalman_filters_tpu_torch/examples/online_estimator.py``)
+   with --fused-step (bank 128, 100 Hz, 10 s; events through the port's
+   StreamPacker, forward-filled gyro), which holds its velocity error to
+   0.02 m/s; then the same with --aot at banks 128 and 1 (every tick function
+   exported, round-tripped through bytes and replayed as a CUDA graph), each
+   held bit for bit to a live run at its bank, with both real-time factors,
+   the export seconds, the artifact bytes, the capture seconds and the
+   captures and replays;
 14. runs the VelocityUKF bank (bench.py's small-filter step: predict + DVL
    in one K6 launch) at bank 65 536, float32, 30 timed steps, and checks and
    times K6 on its operands;
@@ -115,8 +123,11 @@ csrc`` and then, in order:
    ``torch.linalg.cholesky_ex`` with the same equilibration, and the call's
    wall time beside K12's event time;
 25. runs the roofline: ``tools.roofline.measure_fma`` (chained K13
-   launches) and ``measure_hbm`` (the streaming triad), logged beside the
-   data sheet's peaks, and checks and times K13 on its operands;
+   launches), ``measure_hbm`` (the streaming triad) and ``measure_mxu``
+   (cuBLAS float32 4096³ products, TF32 off), logged beside the data
+   sheet's peaks, and ``count_tick_flops`` (a mission tick's matrix products
+   on the generic bank path, on the CPU), and checks and times K13 on its
+   operands;
 26. runs the delayed fixes at bank 131 072, float32: from the shared
    second's end state, 200 states pushed at 100 Hz into per-instance
    delayed-state buffers of 256 while each moves at a known velocity, then
@@ -151,7 +162,20 @@ csrc`` and then, in order:
    ``torch.cuda.set_sync_debug_mode("error")``; a checkpoint round trip bit
    for bit and a restart from the restored snapshot; a one-rank NCCL
    group's reductions against the local ones; 5 ticks under
-   ``tracing.trace`` naming K2's and K3's kernels.
+   ``tracing.trace`` naming K2's and K3's kernels;
+31. runs the ported examples, each with its own checks and its launches
+   counted: the ICRA'18 survey (``--icra-minutes`` at 100 Hz, float32, the
+   lanes replay as a bank of one: K2 and K3), held to an ATE under 0.10 m,
+   and again for ``--icra-smooth-minutes`` with ``--smooth`` (the generic
+   forward pass with K1 and the backward pass with K1 and K8; 1 minute, cut
+   from the example's 3, whose two generic passes would take ~8 minutes;
+   not below 1 minute, the length the bound is set for: at 0.5 minutes the
+   JAX package's own example gives an ATE of 0.110 m on the CPU in
+   float64), held to a smoothed ATE under 0.10 m as well; the noise-tuning sweep (8 candidates
+   × 20 s at 25 Hz: K2 full mode and K3), held to its NIS bracket; the
+   four-filter stack (``--full-stack-seconds`` at 50 Hz, every filter's
+   generic solo functions; 10 s, cut from the example's 30), held to the
+   example's five checks and all filters finite.
 
 A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
 calls held behind a spin kernel, so the host's time to enqueue each is
@@ -176,7 +200,8 @@ failure raises and exits non-zero; so does a machine without CUDA.
 
     python3 chip_smoke.py                       # the full run
     python3 chip_smoke.py --bank 2048 --ticks 100 --fleet-bank 64 --fleet-minutes 0.1 \
-        --velocity-bank 4096 --online-seconds 2 --smoother-seconds 4      # a short one
+        --velocity-bank 4096 --online-seconds 2 --smoother-seconds 4 \
+        --icra-minutes 1 --icra-smooth-minutes 1 --full-stack-seconds 5.2   # a short one
 """
 
 from __future__ import annotations
@@ -281,30 +306,17 @@ def _resident(name: str, dtype, *sizes) -> int:
 
 
 def mission_setup(nb: int, dtype, device, gen: torch.Generator | None = None, spread: float = 0.0):
-    """The bench's mission filter bank, optionally perturbed (means moved, a
-    random correlated covariance at the initial per-field scales)."""
-    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
-    from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as dyn
-    from slam_uwv_kalman_filters_tpu_torch.ops import geodesy as geo
-    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
-    from slam_uwv_kalman_filters_tpu_torch.utils.config import default_pose_ukf_config
+    """The bench's mission filter bank (``tools.roofline.mission_bank``),
+    optionally perturbed (means moved, a random correlated covariance at the
+    initial per-field scales)."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
-    cfg = default_pose_ukf_config()
-    f64 = torch.float64
-    state, params = pukf.init_from_pose(
-        torch.zeros(3, dtype=f64), torch.eye(3, dtype=f64) * 0.01,
-        torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=f64), torch.eye(3, dtype=f64) * 1e-4,
-        cfg, dyn.default_uwv_parameters(device=device), imu_delta_t=DT, device=device,
-    )
-    bs = bank.replicate(state, nb)
-    bs = bs._replace(rotation_rate=torch.tensor([0.0, 0.0, 0.01], dtype=f64, device=device).expand(nb, 3).contiguous())
-    if spread:
-        n = 53
+    def perturb(state, bs):
+        n, f64 = 53, torch.float64
         rn = lambda *s: torch.randn(*s, generator=gen, dtype=f64, device=device)
         mu = bs.mu
         dq = rn(nb, 3) * 0.3 * spread
-        from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
-
         bs = bs._replace(mu=mu._replace(
             position=mu.position + rn(nb, 3),
             orientation=mf.so3_boxplus(mu.orientation, dq),
@@ -318,18 +330,9 @@ def mission_setup(nb: int, dtype, device, gen: torch.Generator | None = None, sp
         c = g @ g.transpose(1, 2) / n + torch.eye(n, dtype=f64, device=device)
         s = torch.sqrt(torch.diagonal(c, dim1=1, dim2=2))
         sd = torch.sqrt(torch.diagonal(state.cov)) * spread
-        bs = bs._replace(cov=c / (s[:, :, None] * s[:, None, :]) * sd[None, :, None] * sd[None, None, :])
-    g0 = float(geo.wgs84_gravity(cfg.location.latitude, cfg.location.altitude))
-    t = lambda v: torch.tensor(v, dtype=dtype, device=device)
-    meas = {
-        "acc": (t([0.0, 0.0, g0]).expand(nb, 3), torch.eye(3, dtype=dtype, device=device) * 4e-5),
-        "dvl": (t([0.3, 0.0, 0.0]).expand(nb, 3), torch.eye(3, dtype=dtype, device=device) * 1e-3),
-        "press": (t([cfg.hydrostatics.atmospheric_pressure]).expand(nb, 1), torch.eye(1, dtype=dtype, device=device) * 2500.0),
-        "adcp": (t([0.0, 0.0]).expand(nb, 2), torch.eye(2, dtype=dtype, device=device) * 1e-3),
-        "eff": (t([0.0] * 6).expand(nb, 6), torch.eye(6, dtype=dtype, device=device)),
-    }
-    to = lambda tree: bank.tree_map(lambda a: a.to(dtype), tree)
-    return to(bs), to(params), meas
+        return bs._replace(cov=c / (s[:, :, None] * s[:, None, :]) * sd[None, :, None] * sd[None, None, :])
+
+    return roofline.mission_bank(nb, dtype, device, perturb if spread else None)
 
 
 def mission_tick(ls, params, meas, k: int):
@@ -337,17 +340,18 @@ def mission_tick(ls, params, meas, k: int):
     from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.ops import ukf
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
     ls = pf.predict_lanes(ls, params, DT)
     ls, _ = puf.update_model_lanes("acceleration", ls, *meas["acc"])
-    if k % 20 == 19:  # DVL 5 Hz
+    if roofline.DVL_AT(k):  # DVL 5 Hz
         ls, _ = puf.update_velocity_lanes(ls, params, *meas["dvl"])
-    if k % 50 == 49:  # pressure 2 Hz
+    if roofline.PRESS_AT(k):  # pressure 2 Hz
         ls, _ = puf.update_model_lanes(
             "pressure", ls, *meas["press"], aux=(params.atmospheric_pressure, 0.0, 0.0, 0.0))
-    if k % 100 == 99:  # ADCP 1 Hz, χ²-95 gated
+    if roofline.ADCP_AT(k):  # ADCP 1 Hz, χ²-95 gated
         ls, _ = puf.update_model_lanes("water_velocity", ls, *meas["adcp"], ukf.D2P95, aux=(0.5,))
-    if k % 10 == 9:  # model-aided body efforts 10 Hz
+    if roofline.EFF_AT(k):  # model-aided body efforts 10 Hz
         ls, _ = puf.update_body_efforts_lanes(ls, params, *meas["eff"])
     return ls
 
@@ -1152,14 +1156,15 @@ def banked_tick_inputs(meas, nb: int, k: int):
     for a bank: every stream present only on the ticks it fires, valid for
     every instance."""
     from slam_uwv_kalman_filters_tpu_torch.models import pose_driver as drv
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
     z, r = meas["acc"]
     dev, dtype = z.device, z.dtype
     ones = torch.ones(nb, dtype=torch.bool, device=dev)
     stream = lambda key, on: (meas[key][0], meas[key][1].expand(nb, *meas[key][1].shape), ones) if on \
         else (None, None, None)
-    dvl, press, adcp, eff = (stream("dvl", k % 20 == 19), stream("press", k % 50 == 49),
-                             stream("adcp", k % 100 == 99), stream("eff", k % 10 == 9))
+    dvl, press, adcp, eff = (stream("dvl", roofline.DVL_AT(k)), stream("press", roofline.PRESS_AT(k)),
+                             stream("adcp", roofline.ADCP_AT(k)), stream("eff", roofline.EFF_AT(k)))
     return drv.PoseInputs(
         dt=torch.full((nb,), DT, dtype=dtype, device=dev),
         rotation_rate=torch.tensor([0.0, 0.0, 0.01], dtype=dtype, device=dev).expand(nb, 3),
@@ -1399,16 +1404,17 @@ def stepped_tick(ls, params, meas, k: int):
     ADCP (1 Hz), then body efforts (10 Hz) through K3."""
     from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
     from slam_uwv_kalman_filters_tpu_torch.ops import ukf
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
     ups = [puf.StepUpdate("acceleration", *meas["acc"])]
-    if k % 20 == 19:
+    if roofline.DVL_AT(k):
         ups.append(puf.StepUpdate("velocity", *meas["dvl"]))
-    if k % 50 == 49:
+    if roofline.PRESS_AT(k):
         ups.append(puf.StepUpdate("pressure", *meas["press"], None, (params.atmospheric_pressure, 0.0, 0.0, 0.0)))
-    if k % 100 == 99:
+    if roofline.ADCP_AT(k):
         ups.append(puf.StepUpdate("water_velocity", *meas["adcp"], ukf.D2P95, (0.5,)))
     ls, _ = puf.step_lanes(ls, params, DT, ups)
-    if k % 10 == 9:
+    if roofline.EFF_AT(k):
         ls, _ = puf.update_body_efforts_lanes(ls, params, *meas["eff"])
     return ls
 
@@ -1530,6 +1536,22 @@ def phase_k2_k5_alone(device) -> dict:
     return out
 
 
+def phase_op_dispatch(device, calls: int = 500) -> dict:
+    """The host's cost of each way to a kernel
+    (``tools.host_paths.dispatch_us``): K5 at bank 1 on the online chain,
+    ``calls`` calls straight to the CUDA wrapper, through the entry point
+    (which eagerly goes straight to the wrapper) and through the op
+    ``slam_uwv::pose_step`` (what an exported program calls). Returns the
+    host µs a call each way."""
+    from slam_uwv_kalman_filters_tpu_torch.tools import host_paths
+
+    out = host_paths.dispatch_us(device, calls)
+    log(f"op dispatch: K5 at bank 1, host µs a call straight to the wrapper {out['direct_us']:.1f}, through the "
+        f"entry point {out['entry_us']:.1f} ({out['entry_us'] - out['direct_us']:+.1f}), through the op "
+        f"{out['op_us']:.1f} ({out['op_us'] - out['direct_us']:+.1f}); runs {out.pop('runs')}")
+    return out
+
+
 def tail_check_operands(nb: int, dtype, device, gen: torch.Generator, m: int):
     """K4 operands at bank ``nb``: perturbed mission states, their sigma
     deltas (K1's plain version), measurement deviations of 0.1 about their
@@ -1597,106 +1619,112 @@ def phase_small_alone(device) -> dict:
 
 
 def phase_online_estimator(device, nb: int = 128, seconds: int = 10, rate: float = 100.0):
-    """examples/online_estimator.py --fused-step on the port: a seeded
-    irregular, shuffled event stream (gyro 100 Hz, DVL 10 Hz, pressure 20 Hz)
-    through the port's StreamPacker one second at a time, forward-filled gyro
-    (set_rotation_rate_lanes), one K5 step per tick that has a DVL or
-    pressure sample and one K2 predict per tick that has neither. Holds the
-    final velocity error to the example's 0.02 m/s; the real-time factor is
-    over the seconds after the first."""
-    import numpy as np
-
-    from slam_uwv_kalman_filters_tpu_torch import runtime
-    from slam_uwv_kalman_filters_tpu_torch.models import pose_fused as pf
-    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
-    from slam_uwv_kalman_filters_tpu_torch.models import pose_update_fused as puf
+    """The ported examples/online_estimator.py --fused-step
+    (``slam_uwv_kalman_filters_tpu_torch/examples/online_estimator.py``): a
+    seeded irregular, shuffled event stream (gyro 100 Hz, DVL 10 Hz, pressure
+    20 Hz) through the port's StreamPacker one second at a time, forward-filled
+    gyro, one K5 step per tick that has a DVL or pressure sample and one K2
+    predict per tick that has neither, float32, with the counters zeroed just
+    before and read just after. The example holds the final velocity error
+    to 0.02 m/s; the real-time factor is over the seconds after the first.
+    Returns the figures (with the final state) and the launches."""
+    from slam_uwv_kalman_filters_tpu_torch.examples import online_estimator
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
-    from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as dyn
-    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
-    from slam_uwv_kalman_filters_tpu_torch.utils.config import default_pose_ukf_config
 
-    gyro, dvl, press = 0, 1, 2
-    rng = np.random.default_rng(0)
-    dt = 1.0 / rate
-    n_ticks = int(rate)
-    cfg = default_pose_ukf_config()
-    g, rho, p_atm = 9.8209, float(cfg.hydrostatics.water_density), float(cfg.hydrostatics.atmospheric_pressure)
-    true_v, depth = np.array([0.4, -0.1, 0.0]), -12.0
-    f64, f32 = torch.float64, torch.float32
-    state, params = pukf.init_from_pose(
-        torch.tensor([0.0, 0.0, depth], dtype=f64), torch.eye(3, dtype=f64) * 0.25,
-        torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=f64), torch.eye(3, dtype=f64) * 1e-4, cfg,
-        dyn.default_uwv_parameters(device=device), imu_delta_t=dt, device=device,
-    )
-    state = pukf.integrate_rotation_rate(state, torch.zeros(3, dtype=f64, device=device))
-    state, params = bank.tree_map(lambda a: a.to(f32), state), bank.tree_map(lambda a: a.to(f32), params)
-    like = bank.replicate(state, nb)
-    ls = pf.to_lanes(like)
-    r_dvl = torch.eye(3, dtype=f32, device=device) * 1e-4
-    r_press = torch.eye(1, dtype=f32, device=device) * 2500.0
-    press_aux = (params.atmospheric_pressure, 0.0, 0.0, 0.0)
-    packer = runtime.StreamPacker(np.asarray([3, 3, 1], np.int32), t0_us=0, dt_us=int(1e6 / rate),
-                                  window_ticks=n_ticks, payload_stride=6)
-    last_gyro = np.zeros(3)
-    total_events = 0
-    steady_wall = first_wall = 0.0
+    torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
-    for sec in range(seconds):
-        # one second of irregular sensor traffic, shuffled (the example's make_event_chunk)
-        t0_us, dt_us = int(sec * 1e6), int(1e6 / rate)
-        ts, ids, pay = [], [], []
-        for k in range(n_ticks):
-            t = t0_us + k * dt_us + rng.integers(-dt_us // 4, dt_us // 4)
-            events = [(t, gyro, np.concatenate([rng.normal(scale=1e-4, size=3), np.zeros(3)]))]
-            if k % 10 == 0:
-                events.append((t + 1000, dvl, np.concatenate([true_v + rng.normal(scale=2e-3, size=3), np.zeros(3)])))
-            if k % 5 == 0:
-                events.append((t + 2000, press, np.asarray([p_atm - depth * g * rho + rng.normal(scale=50.0),
-                                                            0, 0, 0, 0, 0])))
-            for e in events:
-                ts.append(e[0])
-                ids.append(e[1])
-                pay.append(e[2])
-        order = rng.permutation(len(ts))
-        ts, ids, pay = np.asarray(ts, np.int64)[order], np.asarray(ids, np.int32)[order], np.stack(pay)[order]
-        total_events += len(ts)
-        t_start = time.perf_counter()
-        packer.push(ts, ids, pay)
-        widx, values, valid = packer.pop(force=True)
-        if widx != sec:
-            raise AssertionError(f"online estimator: window {widx} released for second {sec}")
-        gyro_vals, _ = runtime.forward_fill(values[gyro], valid[gyro], last_gyro)
-        last_gyro = gyro_vals[-1, :3].copy()
-        for k in range(n_ticks):
-            rr = torch.from_numpy(np.tile(gyro_vals[k, :3], (nb, 1))).to(device=device, dtype=f32)
-            ls = pf.set_rotation_rate_lanes(ls, rr)
-            ups = []
-            if valid[dvl, k]:
-                zv = torch.from_numpy(np.tile(values[dvl, k, :3], (nb, 1))).to(device=device, dtype=f32)
-                ups.append(puf.StepUpdate("velocity", zv, r_dvl))
-            if valid[press, k]:
-                zp = torch.from_numpy(np.tile(values[press, k, :1], (nb, 1))).to(device=device, dtype=f32)
-                ups.append(puf.StepUpdate("pressure", zp, r_press, None, press_aux))
-            if ups:
-                ls, _ = puf.step_lanes(ls, params, dt, ups)
-            else:
-                ls = pf.predict_lanes(ls, params, dt)
-        torch.cuda.synchronize()
-        chunk = time.perf_counter() - t_start
-        if sec == 0:
-            first_wall = chunk
-        else:
-            steady_wall += chunk
+    figures = online_estimator.main(["--bank", str(nb), "--seconds", str(seconds), "--rate", str(rate),
+                                     "--fused-step"])
     launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
-    v = pf.from_lanes(ls, like).mu.velocity[0].double().cpu().numpy()
-    err = float(np.abs(v - true_v).max())
-    rt = (seconds - 1) / steady_wall
-    log(f"online estimator: bank={nb} {rate:.0f} Hz {seconds} s float32 native_packer={packer.native} "
-        f"{total_events} events, {packer.dropped} dropped; steady state {rt:.3f}x real time "
-        f"(first second {first_wall:.3f} s); final velocity error {err:.4f} m/s (limit 0.02) launches={launches}")
-    if not err < 0.02:
-        raise AssertionError("online estimator diverged")
-    return {"real_time_factor": rt, "velocity_error_m_s": err}, launches
+    log(f"online estimator: bank={nb} {rate:.0f} Hz {seconds} s float32 native_packer={figures['native_packer']} "
+        f"{figures['events']} events, {figures['dropped']} dropped; steady state {figures['real_time_factor']:.3f}x "
+        f"real time (first second {figures['first_second_s']:.3f} s); final velocity error "
+        f"{figures['velocity_error_m_s']:.4f} m/s (limit 0.02) launches={launches}")
+    return figures, launches
+
+
+def phase_online_estimator_aot(device, live: dict, seconds: int = 10, rate: float = 100.0):
+    """The online estimator --fused-step --aot at banks 128 and 1: every tick
+    function exported (``utils.aot``), round-tripped through bytes, loaded,
+    captured as a CUDA graph on its first call and replayed after. Its final
+    state must equal the live run's at the same bank bit for bit (bank 128:
+    ``live``, the run of ``phase_online_estimator``; bank 1: a live run made
+    here). Counters zeroed just before the exported runs and read just after
+    (the warm-up and capture calls; a replay moves no counter). Returns the
+    figures and the launches."""
+    from slam_uwv_kalman_filters_tpu_torch.examples import online_estimator
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    argv = lambda nb: ["--bank", str(nb), "--seconds", str(seconds), "--rate", str(rate), "--fused-step"]
+    lives = {128: live, 1: online_estimator.main(argv(1))}
+    out, launches = {}, dict.fromkeys(cuda_lib.KERNELS, 0)
+    for nb in (128, 1):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        exported = online_estimator.main(argv(nb) + ["--aot"])
+        wall = time.perf_counter() - t0
+        bank_launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+        launches = {k: launches[k] + n for k, n in bank_launches.items()}
+        leaves = lambda st: torch.utils._pytree.tree_leaves(st)
+        same = all(torch.equal(a, b) for a, b in zip(leaves(exported["state"]), leaves(lives[nb]["state"])))
+        # one loaded step alone: host ms a call (flatten, copies in, replay,
+        # clones out) against device ms a replay (events around the replays)
+        step, ls = exported["loaded"]["step_dvl"], exported["lanes"]
+        rr, zv = (torch.zeros((nb, 3), dtype=torch.float32, device=device) for _ in range(2))
+        step(ls, rr, zv)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(200):
+            step(ls, rr, zv)
+        torch.cuda.synchronize()
+        call_ms = 1e3 * (time.perf_counter() - t1) / 200
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(200):
+            step.graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        replay_ms = start.elapsed_time(stop) / 200
+        out[f"bank_{nb}"] = {
+            "real_time_factor_live": lives[nb]["real_time_factor"], "real_time_factor_aot": exported["real_time_factor"],
+            "export_s": exported["export_s"], "artifact_bytes": exported["artifact_bytes"],
+            "capture_s": exported["capture_s"], "captures": exported["captures"], "replays": exported["replays"],
+            "first_second_s": exported["first_second_s"], "velocity_error_m_s": exported["velocity_error_m_s"],
+            "bit_equal_to_live": same, "wall_s": wall, "step_dvl_call_ms": call_ms, "step_dvl_replay_ms": replay_ms,
+        }
+        log(f"online estimator --aot: bank={nb} float32 real time {exported['real_time_factor']:.3f}x (live "
+            f"{lives[nb]['real_time_factor']:.3f}x); export {exported['export_s']:.2f} s, "
+            f"{exported['artifact_bytes']} bytes; capture {exported['capture_s']:.3f} s; "
+            f"{exported['captures']} captures, {exported['replays']} replays; final state bit-equal to the live "
+            f"run: {same}; launches (warm-up and capture) {bank_launches}; one step_dvl call {call_ms:.4f} ms on "
+            f"the host clock, one replay {replay_ms:.4f} ms by events")
+        if not same:
+            raise AssertionError(f"online estimator --aot at bank {nb}: the final state differs from the live run's")
+        if exported["captures"] < 1 or exported["replays"] < int(rate) * (seconds - 1):
+            raise AssertionError(f"online estimator --aot at bank {nb}: {exported['captures']} captures, "
+                                 f"{exported['replays']} replays")
+    return out, launches
+
+
+def phase_example(name: str, argv: list):
+    """One ported example (``slam_uwv_kalman_filters_tpu_torch/examples/<name>``)
+    run through its ``main`` with its own checks, the counters zeroed just
+    before and read just after. Returns the figures and the launches."""
+    import importlib
+
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    example = importlib.import_module(f"slam_uwv_kalman_filters_tpu_torch.examples.{name}")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    figures = example.main(argv)
+    torch.cuda.synchronize()
+    figures["phase_s"] = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+    log(f"example {name} {' '.join(argv)}: {json.dumps(figures)} launches={launches}")
+    return figures, launches
 
 
 def phase_velocity_bank(device, nb: int, captured: dict, counts: dict, steps: int = 30):
@@ -2468,8 +2496,11 @@ def phase_roofline(device, captured: dict, counts: dict):
     """The roofline path: ``tools.roofline.measure_fma`` (chained K13
     launches) and ``measure_hbm`` (the streaming triad), with the counters
     zeroed just before and read just after, logged beside the data sheet's
-    peaks. Returns the launches, both rates and the K13 milliseconds of the
-    run at the measured rate."""
+    peaks; then ``measure_mxu`` (cuBLAS float32 products, TF32 off) and
+    ``count_tick_flops`` (a mission tick's matrix products on the generic
+    bank path, on the CPU). Returns the launches, both rates, the K13
+    milliseconds of the run at the measured rate, the matrix rate and the
+    tick's count."""
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
     from slam_uwv_kalman_filters_tpu_torch.tools import roofline
 
@@ -2485,7 +2516,13 @@ def phase_roofline(device, captured: dict, counts: dict):
     if launches != {**_NONE, "fma_probe": counts["fma_probe"]} or counts["fma_probe"] < 2:
         raise AssertionError(f"the roofline launched {launches}")
     probe_ms = 1e3 * 2 * roofline.CHAIN * roofline.ELEMENTS * launches["fma_probe"] / fma
-    return launches, fma, hbm, probe_ms
+    mxu = roofline.measure_mxu(device=device)
+    t0 = time.perf_counter()
+    tick_flops = roofline.count_tick_flops()
+    log(f"roofline: cuBLAS float32 4096^3 products, TF32 off, {mxu / 1e12:.3f} TFLOP/s ({100 * mxu / F32_OPS_PER_S:.1f}% "
+        f"of the data sheet's {F32_OPS_PER_S / 1e12:.0f}); a mission tick's matrix products on the generic bank path "
+        f"(FlopCounterMode, CPU, {time.perf_counter() - t0:.1f} s) {tick_flops:.6e} FLOP per instance")
+    return launches, fma, hbm, probe_ms, mxu, tick_flops
 
 
 def phase_delayed_fixes(ls, like, params, captured: dict, counts: dict):
@@ -2555,75 +2592,8 @@ def phase_delayed_fixes(ls, like, params, captured: dict, counts: dict):
     return total, {"bank": nb, "push_200_ms": 1e3 * push_s, **{k: v[1] for k, v in results.items()}}
 
 
-def class_schedule(ticks: int, g0: float, efforts):
-    """The class path's measurements at bench.py's mission rates from a true
-    path that starts at the filter's pose (1, 2, −3), yaw 0.2 rad, and runs
-    at 0.3 m/s along body x while it turns at 0.01 rad/s, with seeded noise:
-    acceleration (the centripetal 0.003 m/s² and gravity), DVL, pressure at
-    3 m, the vehicle model's efforts for that motion, and a USBL-style XY
-    fix of where the vehicle was 1 s before."""
-    import numpy as np
-
-    rng = np.random.default_rng(43)
-    t = np.arange(ticks) * DT - 1.0
-    yaw = 0.2 + 0.01 * t
-    fix = np.stack([1.0 + 30.0 * (np.sin(yaw) - np.sin(0.2)), 2.0 - 30.0 * (np.cos(yaw) - np.cos(0.2))], -1)
-    return {
-        "acc": np.array([0.0, 0.003, g0]) + rng.normal(scale=0.006, size=(ticks, 3)),
-        "dvl": np.array([0.3, 0.0, 0.0]) + rng.normal(scale=0.03, size=(ticks, 3)),
-        "press": 101325.0 + 3.0 * g0 * 1027.0 + rng.normal(scale=50.0, size=(ticks, 1)),
-        "eff": np.asarray(efforts) + rng.normal(scale=1.0, size=(ticks, 6)),
-        "fix": fix + rng.normal(scale=0.3, size=(ticks, 2)),
-    }
-
-
-def pose_class_run(device, dtype, ticks: int):
-    """One vehicle through ``pose_ukf.PoseUKF`` on ``device`` in ``dtype``:
-    the delayed buffer (2 s, 256 slots) set up, then every tick the rotation
-    rate, ``prediction_step``, ``integrate_acceleration``; DVL every 20th
-    tick, pressure every 50th, velocity-only body efforts every 10th, a fix
-    1 s late through ``integrate_delayed_measurement`` every 200th. Returns
-    (final position, final orientation, per-tick ms, fixes found)."""
-    import numpy as np
-
-    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
-    from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as dyn
-    from slam_uwv_kalman_filters_tpu_torch.utils.config import default_pose_ukf_config
-
-    f = pukf.PoseUKF([1.0, 2.0, -3.0], np.eye(3) * 0.01, [np.cos(0.1), 0.0, 0.0, np.sin(0.1)], np.eye(3) * 1e-4,
-                     default_pose_ukf_config(), dyn.default_uwv_parameters(device=device), imu_delta_t=DT,
-                     imu_in_body_trans=[0.1, 0.0, -0.2], dtype=dtype, device=device)
-    model = dyn.default_uwv_parameters(device="cpu")
-    efforts = dyn.calc_efforts(model, torch.zeros(6, dtype=torch.float64),
-                               torch.tensor([0.3, 0.0, 0.0, 0.0, 0.0, 0.01], dtype=torch.float64),
-                               torch.tensor([np.cos(0.1), 0.0, 0.0, np.sin(0.1)], dtype=torch.float64))
-    sched = class_schedule(ticks, float(f.mu.gravity[0]), efforts.numpy())
-    r = {"acc": np.eye(3) * 4e-5, "dvl": np.eye(3) * 1e-3, "press": np.eye(1) * 2500.0, "eff": np.eye(6),
-         "fix": np.eye(2) * 0.09}
-    sync = torch.cuda.synchronize if f.sigma.device.type == "cuda" else (lambda: None)
-    f.setup_delayed_state_buffer(2.0, 256)
-    tick_ms, found = [], []
-    sync()
-    for k in range(ticks):
-        t0 = time.perf_counter()
-        f.integrate_rotation_rate([0.0, 0.0, 0.01])
-        f.prediction_step(DT)
-        f.integrate_acceleration(sched["acc"][k], r["acc"])
-        if k % 20 == 19:
-            f.integrate_velocity(sched["dvl"][k], r["dvl"])
-        if k % 50 == 49:
-            f.integrate_pressure(sched["press"][k], r["press"])
-        if k % 10 == 9:
-            f.integrate_body_efforts(sched["eff"][k], r["eff"], only_affect_velocity=True)
-        if k % 200 == 199:
-            found.append(f.integrate_delayed_measurement(sched["fix"][k], r["fix"], 1.0))
-        sync()
-        tick_ms.append(1e3 * (time.perf_counter() - t0))
-    return f.mu.position.double().cpu(), f.mu.orientation.double().cpu(), tick_ms, found
-
-
 def phase_pose_class(device, ticks: int, captured: dict, counts: dict):
-    """The class path: :func:`pose_class_run` on the card in float32 with the
+    """The class path: ``tools.host_paths.class_run`` on the card in float32 with the
     counters zeroed just before and read just after and K1's operands
     recorded, per-tick p50 and p99, and its final pose against the same ticks
     through the class on the CPU in float64."""
@@ -2631,19 +2601,20 @@ def phase_pose_class(device, ticks: int, captured: dict, counts: dict):
 
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
     from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.tools.host_paths import class_run
 
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     with capture_operands(captured, counts, keep=lambda key: key.startswith("sigma_deltas")):
-        pos32, q32, tick_ms, found = pose_class_run(device, torch.float32, ticks)
+        pos32, q32, tick_ms, found = class_run(device, torch.float32, ticks)
     launches = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
     card_s = time.perf_counter() - t0
-    pos64, q64, _, found64 = pose_class_run("cpu", torch.float64, ticks)
+    pos64, q64, _, found64 = class_run("cpu", torch.float64, ticks)
     dpos = (pos32 - pos64).norm().item()
     dang = mf.so3_boxminus(q32, q64).norm().item()
     # 3x the class's own float32-vs-float64 drift over these 1000 ticks on the
-    # CPU (pose_class_run on CPU tensors: 4.36e-4 m, 1.82e-5 rad)
+    # CPU (class_run on CPU tensors: 4.36e-4 m, 1.82e-5 rad)
     limits = {"position_m": 1.31e-3, "orientation_rad": 5.5e-5}
     p50, p99 = float(np.percentile(tick_ms, 50)), float(np.percentile(tick_ms, 99))
     updates = ticks * 2 + ticks // 20 + ticks // 50 + ticks // 10 + ticks // 200
@@ -2937,6 +2908,13 @@ def main() -> int:
     parser.add_argument("--fleet-minutes", type=float, default=1.0, help="fleet ATE replay minutes (default 1)")
     parser.add_argument("--velocity-bank", type=int, default=65536, help="VelocityUKF bank (default 65536)")
     parser.add_argument("--online-seconds", type=int, default=10, help="online estimator seconds (default 10)")
+    parser.add_argument("--icra-minutes", type=float, default=3.0, help="ICRA'18 example minutes (default 3)")
+    parser.add_argument("--icra-smooth-minutes", type=float, default=1.0,
+                        help="ICRA'18 example minutes with --smooth (default 1: the generic forward and backward "
+                             "passes take ~27 ms a tick; the 0.10 m ATE bound holds from 1 minute on)")
+    parser.add_argument("--full-stack-seconds", type=float, default=10.0,
+                        help="four-filter example seconds at 50 Hz (default 10, cut from the example's 30, which took "
+                             "71 s on an H100 80GB HBM3)")
     parser.add_argument("--smoother-seconds", type=float, default=60.0,
                         help="survey smoother seconds at 50 Hz (default 60; 40 still spans the fixes at 0 s and "
                              "30 s)")
@@ -3026,7 +3004,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     captured, counts = {}, {}
-    probe_launches, fma, hbm, probe_ms = phase_roofline(device, captured, counts)
+    probe_launches, fma, hbm, probe_ms, mxu, tick_flops = phase_roofline(device, captured, counts)
     times.update(phase_mission_shapes("roofline", captured, counts, {"fma_probe": counts["fma_probe"]}, probe_ms,
                                       stats))
     log(f"phase roofline: {time.perf_counter() - t0:.1f} s")
@@ -3050,10 +3028,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     latency, latency_launches = phase_online_latency(device)
     k2_k5_alone = phase_k2_k5_alone(device)
+    op_dispatch = phase_op_dispatch(device)
     k11_k4_alone = phase_k11_k4_alone(device)
     small_alone = phase_small_alone(device)
     small_profile = phase_small_bank_profile(device)
     estimator, estimator_launches = phase_online_estimator(device, seconds=args.online_seconds)
+    t0 = time.perf_counter()
+    estimator_aot, estimator_aot_launches = phase_online_estimator_aot(device, estimator, seconds=args.online_seconds)
+    estimator = {k: v for k, v in estimator.items() if k not in ("lanes", "state", "loaded")}
+    log(f"phase online estimator --aot: {time.perf_counter() - t0:.1f} s")
     captured, counts = {}, {}
     velocity, rate_velocity, mission_counts = phase_velocity_bank(device, args.velocity_bank, captured, counts)
     times.update(phase_mission_shapes("VelocityUKF bank's 30 steps", captured, counts, mission_counts,
@@ -3113,6 +3096,11 @@ def main() -> int:
     log(f"phase PoseUKF class: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     fleet_ops_launches, fleet_ops = phase_fleet_ops(device)
+    icra, icra_launches = phase_example("icra18_mission", ["--minutes", str(args.icra_minutes)])
+    icra_smooth, icra_smooth_launches = phase_example(
+        "icra18_mission", ["--minutes", str(args.icra_smooth_minutes), "--smooth"])
+    sweep, sweep_launches = phase_example("noise_tuning_sweep", [])
+    full_stack, full_stack_launches = phase_example("full_stack_auv", ["--seconds", str(args.full_stack_seconds)])
 
     # launches of each main path: the counters zeroed just before it, read just after
     paths = {
@@ -3122,6 +3110,9 @@ def main() -> int:
         "indirect_bank": indirect, "marker_mission_second": marker, "marker_trajectory": marker_trajectory,
         "cholesky_bank": cholesky_launches, "roofline": probe_launches, "delayed_fixes": delayed_launches,
         "pose_class": class_launches, "fleet_ops": fleet_ops_launches,
+        "online_estimator_aot": estimator_aot_launches, "icra18_mission": icra_launches,
+        "icra18_mission_smoothed": icra_smooth_launches,
+        "noise_tuning_sweep": sweep_launches, "full_stack_auv": full_stack_launches,
     }
     missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
     if missing:
@@ -3146,9 +3137,13 @@ def main() -> int:
     ], "mission_ticks_per_s": rate, "banked_mission_ticks_per_s": rate_banked,
         "stepped_mission_ticks_per_s": rate_stepped, "bank": args.bank,
         "online_latency_ms": {f"bank_{nb}": {"p50": v[0], "p99": v[1]} for nb, v in latency.items()},
-        "k2_k5_alone_ms": k2_k5_alone, "k11_k4_alone_ms": k11_k4_alone,
+        "k2_k5_alone_ms": k2_k5_alone, "op_dispatch": op_dispatch, "k11_k4_alone_ms": k11_k4_alone,
         "small_kernels_alone_ms": small_alone, "small_bank_profile": small_profile,
-        "online_estimator": estimator, "velocity_filter_steps_per_s": rate_velocity,
+        "online_estimator": estimator, "online_estimator_aot": estimator_aot,
+        "examples": {"icra18_mission": icra, "icra18_mission_smoothed": icra_smooth, "noise_tuning_sweep": sweep,
+                     "full_stack_auv": full_stack},
+        "measured_mxu_flops_per_s": mxu, "tick_flops_matrix_products": tick_flops,
+        "velocity_filter_steps_per_s": rate_velocity,
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,
         "marker_mission_ticks_per_s": rate_marker,

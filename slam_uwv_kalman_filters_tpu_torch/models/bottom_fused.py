@@ -316,12 +316,33 @@ def bottom_step_lanes_cuda(models, do_predict, cov_t, mu_t, vel_t, dt, q9, z_ts,
     return cov_out, mu_out, infos
 
 
+MODEL_NAMES = tuple(FUSED_MODELS)  # model id → name: the op takes ids, its schema has no string lists
+
+
+def _bottom_step_fake(models, do_predict, cov_t, mu_t, vel_t, dt, q9, z_ts, r_ts, dir_ts, org_ts, thrs):
+    out = lambda *shape: cov_t.new_empty(shape)
+    nb = cov_t.shape[-1]
+    return (out(*cov_t.shape), out(*mu_t.shape), [out(1, nb) for _ in models], [out(1, nb) for _ in models],
+            [out(FUSED_MODELS[MODEL_NAMES[m]], nb) for m in models])
+
+
+def _bottom_step_cast(do_predict, cov_t, mu_t, vel_t, dt, q9, z_ts, r_ts, dir_ts, org_ts, thrs):
+    return (bool(do_predict), cov_t, mu_t, vel_t, float(dt), [float(v) for v in q9], z_ts, r_ts, dir_ts, org_ts,
+            [float(t) for t in thrs])
+
+
+_BOTTOM_STEP = cuda_lib.kernel_op(
+    "bottom_step",
+    "(int[] models, bool do_predict, Tensor cov_t, Tensor mu_t, Tensor vel_t, float dt, float[] q9, Tensor[] z_ts,"
+    " Tensor[] r_ts, Tensor?[] dir_ts, Tensor?[] org_ts, float[] thrs) -> (Tensor, Tensor, Tensor[], Tensor[], Tensor[])",
+    lambda *a: bottom_step_lanes_cuda(*a), lambda *a: bottom_step_lanes_plain(*a), _bottom_step_fake,
+    lead=2, **cuda_lib.chain(MODEL_NAMES, _bottom_step_cast),
+)
+
+
 def _bottom_step_lanes(models, do_predict, cov_t, mu_t, vel_t, dt, q9, z_ts, r_ts, dir_ts, org_ts, thrs):
-    if cov_t.device.type == "cuda":
-        return bottom_step_lanes_cuda(models, do_predict, cov_t, mu_t, vel_t, dt, q9, z_ts, r_ts, dir_ts, org_ts, thrs)
-    if cov_t.device.type == "cpu":
-        return bottom_step_lanes_plain(models, do_predict, cov_t, mu_t, vel_t, dt, q9, z_ts, r_ts, dir_ts, org_ts, thrs)
-    raise ValueError(f"bottom step_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("bottom step_lanes", cov_t)
+    return _BOTTOM_STEP(models, do_predict, cov_t, mu_t, vel_t, dt, q9, z_ts, r_ts, dir_ts, org_ts, thrs)
 
 
 # ---------------------------------------------------------------------------

@@ -351,20 +351,30 @@ def indirect_markers_lanes_cuda(cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal):
     return cov_out, mu_out, m2, nu_t
 
 
+_INDIRECT_PREDICT = cuda_lib.kernel_op(
+    "indirect_predict", "(Tensor cov_t, Tensor mu_t, Tensor scal) -> (Tensor, Tensor)",
+    lambda *a: indirect_predict_lanes_cuda(*a), lambda *a: indirect_predict_lanes_plain(*a),
+    lambda cov_t, mu_t, scal: (cov_t.new_empty(cov_t.shape), mu_t.new_empty(mu_t.shape)),
+)
+_INDIRECT_MARKERS = cuda_lib.kernel_op(
+    "indirect_markers",
+    "(Tensor cov_t, Tensor mu_t, Tensor ref_t, Tensor mk_t, Tensor z_t, Tensor r_t, Tensor scal)"
+    " -> (Tensor, Tensor, Tensor, Tensor)",
+    lambda *a: indirect_markers_lanes_cuda(*a), lambda *a: indirect_markers_lanes_plain(*a),
+    lambda cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal: (
+        cov_t.new_empty(cov_t.shape), mu_t.new_empty(mu_t.shape), cov_t.new_empty(z_t.shape[0], cov_t.shape[-1]),
+        cov_t.new_empty(z_t.shape[0], 2, cov_t.shape[-1])),
+)
+
+
 def _indirect_predict_lanes(cov_t, mu_t, scal):
-    if cov_t.device.type == "cuda":
-        return indirect_predict_lanes_cuda(cov_t, mu_t, scal)
-    if cov_t.device.type == "cpu":
-        return indirect_predict_lanes_plain(cov_t, mu_t, scal)
-    raise ValueError(f"indirect predict_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("indirect predict_lanes", cov_t)
+    return _INDIRECT_PREDICT(cov_t, mu_t, scal)
 
 
 def _indirect_markers_lanes(cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal):
-    if cov_t.device.type == "cuda":
-        return indirect_markers_lanes_cuda(cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal)
-    if cov_t.device.type == "cpu":
-        return indirect_markers_lanes_plain(cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal)
-    raise ValueError(f"indirect update_markers_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("indirect update_markers_lanes", cov_t)
+    return _INDIRECT_MARKERS(cov_t, mu_t, ref_t, mk_t, z_t, r_t, scal)
 
 
 # ---------------------------------------------------------------------------

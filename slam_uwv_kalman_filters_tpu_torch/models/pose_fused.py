@@ -322,12 +322,18 @@ def predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t=None):
     return cov_out, mu_out
 
 
+_POSE_PREDICT = cuda_lib.kernel_op(
+    "pose_predict",
+    "(Tensor cov_t, Tensor mu_t, Tensor rr_t, Tensor coeff, Tensor offs, Tensor q0m, Tensor scal, Tensor? aux_t)"
+    " -> (Tensor, Tensor)",
+    lambda *a: predict_lanes_cuda(*a), lambda *a: predict_lanes_plain(*a),
+    lambda cov_t, mu_t, *rest: (cov_t.new_empty(cov_t.shape), mu_t.new_empty(mu_t.shape)),
+)
+
+
 def _pose_predict_lanes(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t=None):
-    if cov_t.device.type == "cuda":
-        return predict_lanes_cuda(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t)
-    if cov_t.device.type == "cpu":
-        return predict_lanes_plain(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t)
-    raise ValueError(f"predict_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("predict_lanes", cov_t)
+    return _POSE_PREDICT(cov_t, mu_t, rr_t, coeff, offs, q0m, scal, aux_t)
 
 
 # ---------------------------------------------------------------------------

@@ -184,12 +184,19 @@ def pose_markers_lanes_cuda(cov_t, mu_t, mk_t, z_t, r_t, scal):
     return cov_out, mu_out, m2, nu_t
 
 
+_POSE_MARKERS = cuda_lib.kernel_op(
+    "pose_markers",
+    "(Tensor cov_t, Tensor mu_t, Tensor mk_t, Tensor z_t, Tensor r_t, Tensor scal) -> (Tensor, Tensor, Tensor, Tensor)",
+    lambda *a: pose_markers_lanes_cuda(*a), lambda *a: pose_markers_lanes_plain(*a),
+    lambda cov_t, mu_t, mk_t, z_t, r_t, scal: (
+        cov_t.new_empty(cov_t.shape), mu_t.new_empty(mu_t.shape), cov_t.new_empty(z_t.shape[0], cov_t.shape[-1]),
+        cov_t.new_empty(z_t.shape[0], 2, cov_t.shape[-1])),
+)
+
+
 def _pose_markers_lanes(cov_t, mu_t, mk_t, z_t, r_t, scal):
-    if cov_t.device.type == "cuda":
-        return pose_markers_lanes_cuda(cov_t, mu_t, mk_t, z_t, r_t, scal)
-    if cov_t.device.type == "cpu":
-        return pose_markers_lanes_plain(cov_t, mu_t, mk_t, z_t, r_t, scal)
-    raise ValueError(f"update_visual_features_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("update_visual_features_lanes", cov_t)
+    return _POSE_MARKERS(cov_t, mu_t, mk_t, z_t, r_t, scal)
 
 
 # ---------------------------------------------------------------------------

@@ -84,6 +84,7 @@ if TYPE_CHECKING:
 __all__ = [
     "FUSED_MODELS",
     "MAX_STEP_UPDATES",
+    "MODEL_NAMES",
     "MAX_TAIL_M",
     "STEP_MODELS",
     "StepUpdate",
@@ -369,6 +370,18 @@ def update_tail_cuda(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
     return cov_out, mu_out, m2, acc
 
 
+_lanes_outputs = lambda cov_t, mu_t, *rows: (
+    cov_t.new_empty(cov_t.shape), mu_t.new_empty(mu_t.shape), *(cov_t.new_empty(r, cov_t.shape[-1]) for r in rows))
+_POSE_UPDATE_TAIL = cuda_lib.kernel_op(
+    "pose_update_tail",
+    "(Tensor deltas_t, Tensor dz_t, Tensor nu_t, Tensor r_t, Tensor mu_t, Tensor cov_t, float thr)"
+    " -> (Tensor, Tensor, Tensor, Tensor)",
+    lambda *a: update_tail_cuda(*a), lambda *a: update_tail_plain(*a),
+    lambda deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr: _lanes_outputs(cov_t, mu_t, 1, 1),
+    lead=5, adapt=lambda op, *a: op(*a[:-1], float(a[-1])),
+)
+
+
 def _pose_update_lanes(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
     m = dz_t.shape[1]
     if not 1 <= m <= MAX_TAIL_M:
@@ -376,11 +389,8 @@ def _pose_update_lanes(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr):
             f"the generic-h update tail takes a measurement dimension 1 … {MAX_TAIL_M} "
             f"(MAX_TAIL_M, the kernel's compile-time cap); got m = {m}"
         )
-    if cov_t.device.type == "cuda":
-        return update_tail_cuda(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr)
-    if cov_t.device.type == "cpu":
-        return update_tail_plain(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr)
-    raise ValueError(f"update_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("update_lanes", cov_t)
+    return _POSE_UPDATE_TAIL(deltas_t, dz_t, nu_t, r_t, mu_t, cov_t, thr)
 
 
 def update_model_lanes_cuda(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, mscal=None):
@@ -414,12 +424,20 @@ def update_model_lanes_cuda(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, msca
     return cov_out, mu_out, m2, acc, nu_t
 
 
+MODEL_NAMES = tuple(FUSED_MODELS)  # model id → name: the ops take ids, their schemas have no string lists
+_POSE_UPDATE_MODEL = cuda_lib.kernel_op(
+    "pose_update_model",
+    "(int model, Tensor z_t, Tensor r_t, Tensor mu_t, Tensor cov_t, Tensor scal, Tensor? aux_t, Tensor? mscal)"
+    " -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    lambda *a: update_model_lanes_cuda(*a), lambda *a: update_model_lanes_plain(*a),
+    lambda model, z_t, r_t, mu_t, cov_t, *rest: _lanes_outputs(cov_t, mu_t, 1, 1, z_t.shape[0]),
+    lead=4, **cuda_lib.model_ids(MODEL_NAMES),
+)
+
+
 def _pose_update_model_lanes(model, z_t, r_t, mu_t, cov_t, scal, aux_t=None, mscal=None):
-    if cov_t.device.type == "cuda":
-        return update_model_lanes_cuda(model, z_t, r_t, mu_t, cov_t, scal, aux_t, mscal)
-    if cov_t.device.type == "cpu":
-        return update_model_lanes_plain(model, z_t, r_t, mu_t, cov_t, scal, aux_t, mscal)
-    raise ValueError(f"update_model_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("update_model_lanes", cov_t)
+    return _POSE_UPDATE_MODEL(model, z_t, r_t, mu_t, cov_t, scal, aux_t, mscal)
 
 
 # ---------------------------------------------------------------------------
@@ -693,12 +711,21 @@ def pose_step_lanes_cuda(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts
     return cov_out, mu_out, infos
 
 
+_POSE_STEP = cuda_lib.kernel_op(
+    "pose_step",
+    "(int[] models, Tensor cov_t, Tensor mu_t, Tensor rr_t, Tensor coeff, Tensor offs, Tensor q0m, Tensor scal,"
+    " Tensor[] z_ts, Tensor[] r_ts, Tensor scal6) -> (Tensor, Tensor, Tensor[], Tensor[], Tensor[])",
+    lambda *a: pose_step_lanes_cuda(*a), lambda *a: pose_step_lanes_plain(*a),
+    lambda models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6: (
+        *_lanes_outputs(cov_t, mu_t), *([cov_t.new_empty(r, cov_t.shape[-1]) for _ in models] for r in (1, 1)),
+        [cov_t.new_empty(z.shape) for z in z_ts]),
+    lead=1, **cuda_lib.chain(MODEL_NAMES),
+)
+
+
 def _pose_step_lanes(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6):
-    if cov_t.device.type == "cuda":
-        return pose_step_lanes_cuda(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6)
-    if cov_t.device.type == "cpu":
-        return pose_step_lanes_plain(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6)
-    raise ValueError(f"step_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("step_lanes", cov_t)
+    return _POSE_STEP(models, cov_t, mu_t, rr_t, coeff, offs, q0m, scal, z_ts, r_ts, scal6)
 
 
 def _pad_measurement(z, meas_cov, pad, m, dtype):

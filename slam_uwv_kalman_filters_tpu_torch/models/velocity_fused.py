@@ -322,12 +322,34 @@ def velocity_step_lanes_cuda(models, do_predict, cov_t, mu_t, eff_t, av_t, trk_t
     return cov_out, mu_out, trk_out, infos
 
 
+MODEL_NAMES = tuple(FUSED_MODELS)  # model id → name: the op takes ids, its schema has no string lists
+
+
+def _velocity_step_fake(models, do_predict, cov_t, mu_t, eff_t, av_t, trk_t, scal, z_ts, r_ts, thrs):
+    out = lambda *shape: cov_t.new_empty(shape)
+    nb = cov_t.shape[-1]
+    return (out(*cov_t.shape), out(*mu_t.shape), out(*trk_t.shape), [out(1, nb) for _ in models],
+            [out(1, nb) for _ in models], [out(*z.shape) for z in z_ts])
+
+
+def _velocity_step_cast(do_predict, *args):
+    *head, thrs = args
+    return (bool(do_predict), *head, [float(t) for t in thrs])
+
+
+_VELOCITY_STEP = cuda_lib.kernel_op(
+    "velocity_step",
+    "(int[] models, bool do_predict, Tensor cov_t, Tensor mu_t, Tensor eff_t, Tensor av_t, Tensor trk_t,"
+    " Tensor? scal, Tensor[] z_ts, Tensor[] r_ts, float[] thrs)"
+    " -> (Tensor, Tensor, Tensor, Tensor[], Tensor[], Tensor[])",
+    lambda *a: velocity_step_lanes_cuda(*a), lambda *a: velocity_step_lanes_plain(*a), _velocity_step_fake,
+    lead=2, **cuda_lib.chain(MODEL_NAMES, _velocity_step_cast),
+)
+
+
 def _velocity_step_lanes(models, do_predict, cov_t, mu_t, eff_t, av_t, trk_t, scal, z_ts, r_ts, thrs):
-    if cov_t.device.type == "cuda":
-        return velocity_step_lanes_cuda(models, do_predict, cov_t, mu_t, eff_t, av_t, trk_t, scal, z_ts, r_ts, thrs)
-    if cov_t.device.type == "cpu":
-        return velocity_step_lanes_plain(models, do_predict, cov_t, mu_t, eff_t, av_t, trk_t, scal, z_ts, r_ts, thrs)
-    raise ValueError(f"velocity step_lanes: no path for device {cov_t.device}")
+    cuda_lib.route("velocity step_lanes", cov_t)
+    return _VELOCITY_STEP(models, do_predict, cov_t, mu_t, eff_t, av_t, trk_t, scal, z_ts, r_ts, thrs)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,13 @@ argument types, and a plain integer launch counter that counts launches and
 nothing else. A C entry point enqueues its kernel on the stream it is given
 and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if that is
 not ``cudaSuccess``.
+
+Each kernel wrapper is also a functional op of the ``slam_uwv`` namespace
+(:func:`kernel_op`): its CUDA implementation is the kernel's wrapper, its
+CPU implementation the plain version, and its fake gives the outputs'
+shapes. The entry points call the wrapper straight; under ``torch.export``
+they call the op, so the exported graph records it by name (``utils/aot.py``)
+and a CUDA graph of the loaded program captures its launch.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "library", "build_info", "host_array", "reset_launch_counts", "stream_ptr"]
+__all__ = ["Kernel", "KERNELS", "KernelOp", "NAMESPACE", "library", "build_info", "chain", "host_array",
+           "kernel_op", "model_ids", "reset_launch_counts", "route", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -178,6 +186,124 @@ KERNELS = {
         (_P, _P, _P, _I64, _P), suffixes=("f32",),
     ),
 }
+
+
+NAMESPACE = "slam_uwv"
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for leaf in tree:
+            yield from _tensors(leaf)
+
+
+def _fresh_outputs(fn):
+    """``fn`` with its outputs as the kernels give theirs: contiguous, and
+    never an input's storage (an op's outputs may not alias its inputs, and
+    a plain version may pass an operand through unchanged)."""
+
+    def call(*args):
+        held = {t.untyped_storage().data_ptr() for t in _tensors(args) if t.numel()}
+
+        def fresh(tree):
+            if isinstance(tree, torch.Tensor):
+                if tree.numel() and tree.untyped_storage().data_ptr() in held:
+                    return tree.clone(memory_format=torch.contiguous_format)
+                return tree.contiguous()
+            if isinstance(tree, (tuple, list)):
+                return type(tree)(fresh(leaf) for leaf in tree)
+            return tree
+
+        return fresh(fn(*args))
+
+    return call
+
+
+def _call(op, *args):
+    return op(*args)
+
+
+class KernelOp:
+    """A kernel wrapper and its op ``slam_uwv::<name>`` (:func:`kernel_op`).
+    Called eagerly it goes straight to the wrapper when ``args[lead]`` is a
+    CUDA tensor and to the plain version otherwise, with no dispatcher in
+    between: the op's Python dispatch costs each call about 80 µs of host
+    (K5 at bank 1 on an H100 80GB HBM3 host, ``chip_smoke.phase_op_dispatch``).
+    Under ``torch.export`` it calls the op through ``adapt``, so the graph
+    records it by name; a loaded program then calls the op on either
+    device. ``op`` is the op's overload."""
+
+    __slots__ = ("op", "cuda", "plain", "lead", "adapt")
+
+    def __init__(self, op, cuda, plain, lead: int = 0, adapt=_call):
+        self.op, self.cuda, self.plain, self.lead, self.adapt = op, cuda, plain, lead, adapt
+
+    def __call__(self, *args):
+        if torch.compiler.is_exporting():
+            return self.adapt(self.op, *args)
+        return (self.cuda if args[self.lead].is_cuda else self.plain)(*args)
+
+
+def kernel_op(name: str, schema: str, cuda, plain, fake, *, lead: int = 0, impl=None, adapt=_call) -> KernelOp:
+    """Register a kernel wrapper as the functional op ``slam_uwv::<name>``
+    (``torch.library.custom_op``) and return it as a :class:`KernelOp`.
+    ``cuda`` launches the kernel on CUDA tensors and ``plain`` is its plain
+    version for CPU tensors, both taking the entry point's arguments, the
+    tensor ``args[lead]`` choosing between them. Where the schema takes
+    other types (model ids for names, lists for the per-update triples,
+    floats), ``impl(fn)`` turns either into the op's implementation and
+    ``adapt(op, *args)`` calls the op with the entry point's arguments and
+    returns what ``fn`` returns (:func:`model_ids`, :func:`chain`). ``fake``
+    returns empty outputs of exactly the shapes, dtypes and strides the op's
+    CUDA implementation returns. The op's outputs are fresh tensors, never
+    an input's, so export needs no copy. The kernel wrappers count their
+    launches; the op adds nothing to the counts."""
+    impl = impl or (lambda fn: fn)
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", _fresh_outputs(impl(plain)), mutates_args=(),
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda", impl(cuda))
+    op.register_fake(fake)
+    return KernelOp(op._opoverload, cuda, plain, lead, adapt)
+
+
+def model_ids(names: tuple) -> dict:
+    """``kernel_op``'s ``impl`` and ``adapt`` for a kernel whose first
+    argument names its model (K3): the op takes the name's index in
+    ``names`` (an op's schema has no strings)."""
+    ids = {n: i for i, n in enumerate(names)}
+    return {"impl": lambda fn: lambda model, *args: fn(names[model], *args),
+            "adapt": lambda op, model, *args: op(ids[model], *args)}
+
+
+def chain(names: tuple, cast=lambda *args: args) -> dict:
+    """``kernel_op``'s ``impl`` and ``adapt`` for a whole-step kernel (K5,
+    K6, K7): its first argument, the chain's model names, travels as their
+    indices in ``names``, ``cast`` gives the other arguments the schema's
+    types, and the per-update (m2, acc, nu_t) triples travel as three
+    lists."""
+    ids = {n: i for i, n in enumerate(names)}
+
+    def impl(fn):
+        def call(models, *args):
+            *head, infos = fn(tuple(names[m] for m in models), *args)
+            return (*head, *([info[k] for info in infos] for k in range(3)))
+
+        return call
+
+    def adapt(op, models, *args):
+        *head, m2s, accs, nus = op([ids[m] for m in models], *cast(*args))
+        return (*head, list(zip(m2s, accs, nus)))
+
+    return {"impl": impl, "adapt": adapt}
+
+
+def route(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on a device the kernel ops serve (CUDA: the
+    kernel, CPU: its plain version)."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: no path for device {t.device}")
 
 
 def host_array(ctype, values) -> ctypes.Array:

@@ -12,7 +12,9 @@ triangular substitutions X = A⁻¹B (``_solve_spd_kernel``). On a CUDA tensor
 :func:`sigma_deltas_lanes` (bank-last, the lanes layout of
 ``models/pose_fused.py``) that of ``csrc/sigma_deltas.cu``, and
 :func:`solve_spd_banked` that of ``csrc/solve_spd.cu``; on a CPU tensor they
-run the plain version.
+run the plain version. Each is also an op (``slam_uwv::sigma_deltas_lanes``,
+``sigma_deltas``, ``solve_spd``, ``cholesky``; ``cuda_lib.kernel_op``), which
+they call under ``torch.export``.
 
 The deltas are ukfom-ordered: row 0 zero, rows 2j+1 / 2j+2 the ±j-th column
 of L = D·chol(D⁻¹·A·D⁻¹), D = √max(diag A, tiny). The diagonal equilibration
@@ -150,16 +152,28 @@ def sigma_deltas_cuda(cov: torch.Tensor) -> torch.Tensor:
     return _factor_launch("sigma_deltas", cov, (0, 1, 2), out, (0, 1, 2))
 
 
+# the kernels as ops (``cuda_lib.kernel_op``): the CUDA wrapper on the card, the
+# plain version on the CPU, each looked up when called
+_new = lambda t, *shape: t.new_empty(shape)
+_SIGMA_DELTAS_LANES = cuda_lib.kernel_op(
+    "sigma_deltas_lanes", "(Tensor a_t) -> Tensor",
+    lambda a_t: sigma_deltas_lanes_cuda(a_t), lambda a_t: sigma_deltas_lanes_plain(a_t),
+    lambda a_t: _new(a_t, 2 * a_t.shape[0] + 1, a_t.shape[0], a_t.shape[-1]),
+)
+_SIGMA_DELTAS = cuda_lib.kernel_op(
+    "sigma_deltas", "(Tensor cov) -> Tensor",
+    lambda cov: sigma_deltas_cuda(cov), lambda cov: sigma_deltas_plain(cov),
+    lambda cov: _new(cov, cov.shape[0], 2 * cov.shape[-1] + 1, cov.shape[-1]),
+)
+
+
 def sigma_deltas_lanes(a_t: torch.Tensor) -> torch.Tensor:
     """(n, n, N) half-valid lanes covariance → (2n+1, n, N) sigma deltas, as
     it stands (no permute, no mirror): the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. The counterpart of JAX
     ``_sigma_deltas_lanes(lstate.cov_t)``."""
-    if a_t.device.type == "cuda":
-        return sigma_deltas_lanes_cuda(a_t)
-    if a_t.device.type == "cpu":
-        return sigma_deltas_lanes_plain(a_t)
-    raise ValueError(f"sigma_deltas_lanes: no path for device {a_t.device}")
+    cuda_lib.route("sigma_deltas_lanes", a_t)
+    return _SIGMA_DELTAS_LANES(a_t)
 
 
 def sigma_deltas_banked(cov: torch.Tensor) -> torch.Tensor:
@@ -168,12 +182,8 @@ def sigma_deltas_banked(cov: torch.Tensor) -> torch.Tensor:
     single = cov.ndim == 2
     if single:
         cov = cov[None]
-    if cov.device.type == "cuda":
-        out = sigma_deltas_cuda(cov)
-    elif cov.device.type == "cpu":
-        out = sigma_deltas_plain(cov)
-    else:
-        raise ValueError(f"sigma_deltas_banked: no path for device {cov.device}")
+    cuda_lib.route("sigma_deltas_banked", cov)
+    out = _SIGMA_DELTAS(cov)
     return out[0] if single else out
 
 
@@ -248,6 +258,13 @@ def solve_spd_cuda(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return _solve_spd_launch(spd, (0, 1, 2), rhs, (0, 1, 2), x, (0, 1, 2))
 
 
+_SOLVE_SPD = cuda_lib.kernel_op(
+    "solve_spd", "(Tensor spd, Tensor rhs) -> Tensor",
+    lambda spd, rhs: solve_spd_cuda(spd, rhs), lambda spd, rhs: solve_spd_plain(spd, rhs),
+    lambda spd, rhs: _new(spd, spd.shape[0], spd.shape[-1], rhs.shape[-1]),
+)
+
+
 def solve_spd_banked(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """A⁻¹B for SPD ``spd`` (N, n, n) or (n, n) and ``rhs`` (N, n, k) or
     (n, k): n ≤ ``UNROLL_LIMIT`` by the unrolled substitution of
@@ -260,12 +277,9 @@ def solve_spd_banked(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         spd, rhs = spd[None], rhs[None]
     if spd.shape[-1] <= UNROLL_LIMIT:
         out = solve_spd(spd, rhs)
-    elif spd.device.type == "cuda":
-        out = solve_spd_cuda(spd, rhs)
-    elif spd.device.type == "cpu":
-        out = solve_spd_plain(spd, rhs)
     else:
-        raise ValueError(f"solve_spd_banked: no path for device {spd.device}")
+        cuda_lib.route("solve_spd_banked", spd)
+        out = _SOLVE_SPD(spd, rhs)
     return out[0] if single else out
 
 
@@ -317,6 +331,13 @@ def cholesky_cuda(cov: torch.Tensor) -> torch.Tensor:
     return _factor_launch("cholesky", cov, (0, 1, 2), out, (0, 1, 2))
 
 
+_CHOLESKY = cuda_lib.kernel_op(
+    "cholesky", "(Tensor cov) -> Tensor",
+    lambda cov: cholesky_cuda(cov), lambda cov: cholesky_plain(cov),
+    lambda cov: _new(cov, *cov.shape),
+)
+
+
 def cholesky_banked(cov: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky of SPD ``cov`` (N, n, n) or (n, n), lower triangle
     read: n ≤ ``UNROLL_LIMIT`` unrolled on any device; larger n diagonally
@@ -329,12 +350,9 @@ def cholesky_banked(cov: torch.Tensor) -> torch.Tensor:
         cov = cov[None]
     if cov.shape[-1] <= UNROLL_LIMIT:
         out = cholesky_unrolled(cov)
-    elif cov.device.type == "cuda":
-        out = cholesky_cuda(cov)
-    elif cov.device.type == "cpu":
-        out = cholesky_plain(cov)
     else:
-        raise ValueError(f"cholesky_banked: no path for device {cov.device}")
+        cuda_lib.route("cholesky_banked", cov)
+        out = _CHOLESKY(cov)
     return out[0] if single else out
 
 

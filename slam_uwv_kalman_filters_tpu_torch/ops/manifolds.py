@@ -385,6 +385,16 @@ class ProductManifold:
         return points._replace(**updates)
 
 
+def _run_every_iteration(vals: torch.Tensor) -> bool:
+    """True where the iterative mean may not read its convergence flag on
+    the host: under ``torch.export``, or on the card while the current
+    stream captures a CUDA graph (asked only for a CUDA tensor: a build
+    without CUDA raises on the question)."""
+    if torch.compiler.is_exporting():
+        return True
+    return vals.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def _iterative_mean(vals: torch.Tensor, boxplus, boxminus, *, max_iters: int, tol: float) -> torch.Tensor:
     """Iterative Karcher mean of manifold points ``vals`` (K, ..., d) over
     the leading axis through ``boxplus`` / ``boxminus``, started from
@@ -397,18 +407,26 @@ def _iterative_mean(vals: torch.Tensor, boxplus, boxminus, *, max_iters: int, to
     the CPU the host reads that flag; on the card each iteration copies it,
     non-blocking, to pinned host memory behind an event that the host polls
     and never waits on, so the loop ends a few iterations after the card has
-    converged and the host never waits for the device."""
+    converged and the host never waits for the device.
+
+    Where no host read is possible (under ``torch.export``, or while a CUDA
+    graph is being captured, :func:`_run_every_iteration`) it runs all
+    ``max_iters`` with no flag: a frozen instance's iterations are
+    identities, so the result has the same bits."""
     m = vals[0]
     norm = torch.full(m.shape[:-1], float("inf"), dtype=vals.dtype, device=vals.device)
+    run_all = _run_every_iteration(vals)
     on_card = vals.device.type == "cuda"
     # True until its copy lands, so a flag read early can never end the loop
-    flags = torch.ones(max_iters, dtype=torch.bool, pin_memory=True) if on_card else None
+    flags = torch.ones(max_iters, dtype=torch.bool, pin_memory=True) if on_card and not run_all else None
     reported = []  # (iteration, event) of the flags on their way to the host, oldest first
     for it in range(max_iters):
         active = norm > tol
         delta = boxminus(vals, m[None]).mean(dim=0)
         m = torch.where(active[..., None], boxplus(m, delta), m)
         norm = torch.where(active, torch.linalg.vector_norm(delta, dim=-1), norm)
+        if run_all:
+            continue
         any_active = (norm > tol).any()
         if not on_card:
             if not bool(any_active):

@@ -33,7 +33,12 @@ def last_operands(build):
     parameter object, dt and dtype as the call before, with no tensor of the
     parameters written since, returns the operands built then. The memo holds
     the parameter object itself, so its identity cannot pass to another
-    object. Callers read the operands and never write them."""
+    object. Callers read the operands and never write them.
+
+    Under ``torch.export`` the memo may serve a block an eager call built
+    (the export then holds it as a constant), but it neither keeps a block
+    built while tracing nor drops the one it holds: a traced block holds
+    fake tensors, which no later eager call may be handed."""
     memo: dict = {}
 
     @functools.wraps(build)
@@ -41,6 +46,8 @@ def last_operands(build):
         key = (float(dt), dtype, _versions(params))
         if memo.get("params") is params and memo["key"] == key:
             return memo["out"]
+        if torch.compiler.is_exporting():
+            return build(params, dt, dtype)
         memo.clear()
         out = build(params, dt, dtype)
         memo.update(params=params, key=key, out=out)

@@ -86,6 +86,7 @@ def test_cholesky_plain_matches_the_jax_kernel_in_interpret_mode():
 
 
 def test_failed_factorization_is_nan_and_other_devices_raise():
+    cuda_lib.reset_launch_counts()
     covs = random_spd_batch(np.random.default_rng(RNG_SEED + 3), 3, 53)
     covs[1, 7, 7] = -1.0  # not SPD
     out = tk.cholesky_banked(torch.from_numpy(covs))

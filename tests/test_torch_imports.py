@@ -21,14 +21,18 @@ def test_port_imports_without_jax():
         "linalg_small, manifolds, ukf\n"
         "from slam_uwv_kalman_filters_tpu_torch.parallel import bank, checkpoint, failover, sharding\n"
         "from slam_uwv_kalman_filters_tpu_torch import runtime\n"
-        "from slam_uwv_kalman_filters_tpu_torch.utils import config, convert, delayed_states, device, memo, metrics, "
-        "tracing, validation\n"
-        "from slam_uwv_kalman_filters_tpu_torch.examples import fleet_monte_carlo\n"
-        "from slam_uwv_kalman_filters_tpu_torch.tools import roofline\n"
+        "from slam_uwv_kalman_filters_tpu_torch.utils import aot, config, convert, delayed_states, device, memo, "
+        "metrics, tracing, validation\n"
+        "from slam_uwv_kalman_filters_tpu_torch.examples import fleet_monte_carlo, full_stack_auv, icra18_mission, "
+        "noise_tuning_sweep, online_estimator\n"
+        "from slam_uwv_kalman_filters_tpu_torch.tools import host_paths, roofline\n"
+        "assert callable(roofline.measure_mxu) and callable(roofline.count_tick_flops)\n"
+        "assert all(callable(getattr(aot, n)) for n in ('export_step', 'serialize', 'deserialize', 'save', 'load'))\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'slam_uwv_kalman_filters_tpu.', 'flax', 'orbax', 'msgpack')) "
-        "or m in ('slam_uwv_kalman_filters_tpu', 'icra18_mission', 'fleet_monte_carlo'))\n"
+        "or m in ('slam_uwv_kalman_filters_tpu', 'icra18_mission', 'fleet_monte_carlo', 'online_estimator', "
+        "'noise_tuning_sweep', 'full_stack_auv'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -5,7 +5,7 @@ push and the external-pose reset, solo and bank; the velocity-only body
 efforts (``only_affect_velocity``); the ``PoseUKF`` class through one
 schedule of every ``integrate_*`` method against JAX's class; and a
 1000-tick trajectory through the port's class with buffered delayed fixes
-(``chip_smoke.class_schedule``: the mission rates, a fix 1 s late every
+(``tools/host_paths.class_schedule``: the mission rates, a fix 1 s late every
 2 s) against the JAX package's pure functions, each jitted once.
 
 Tolerances: one update runs a 53- or 55-column Cholesky and sums 107 or 111
@@ -15,7 +15,6 @@ atol 1e-10 (the covariance's smallest variances are ~1e-11, its largest
 rtol 1e-6 / atol 1e-9, as the port's other 1000-tick parity tests.
 """
 
-import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +30,7 @@ from slam_uwv_kalman_filters_tpu.utils.config import default_pose_ukf_config as 
 from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as tpukf
 from slam_uwv_kalman_filters_tpu_torch.ops import dynamics as tdyn
 from slam_uwv_kalman_filters_tpu_torch.parallel import bank as tbank
+from slam_uwv_kalman_filters_tpu_torch.tools import host_paths
 from slam_uwv_kalman_filters_tpu_torch.utils import delayed_states as tds
 from slam_uwv_kalman_filters_tpu_torch.utils.config import CameraConfiguration as TCam
 from slam_uwv_kalman_filters_tpu_torch.utils.config import default_pose_ukf_config as tcfg
@@ -222,7 +222,7 @@ def test_class_through_every_integrate_method_matches_jax():
 
 
 def run_class(ours, sched, ticks, each):
-    """``chip_smoke.pose_class_run``'s ticks on ``ours``: rotation rate and
+    """``tools/host_paths.class_run``'s ticks on ``ours``: rotation rate and
     prediction every tick (the delayed buffer of 2 s set up first), then the
     tick's measurements; ``each(k, found)`` after every delayed fix."""
     ours.setup_delayed_state_buffer(2.0, 256)
@@ -248,7 +248,7 @@ def test_class_trajectory_1000_ticks_with_buffered_fixes_matches_jitted_jax():
     q0 = jnp.asarray([np.cos(0.1), 0.0, 0.0, np.sin(0.1)])
     efforts = jdyn.calc_efforts(jdyn.default_uwv_parameters(), jnp.zeros(6),
                                 jnp.asarray([0.3, 0.0, 0.0, 0.0, 0.0, 0.01]), q0)
-    sched = chip_smoke.class_schedule(ticks, float(ref.state.mu.gravity[0]), np.asarray(efforts))
+    sched = host_paths.class_schedule(ticks, float(ref.state.mu.gravity[0]), np.asarray(efforts))
 
     @jax.jit
     def predict_push(s, p, buf, ts):
