@@ -175,7 +175,19 @@ csrc`` and then, in order:
    × 20 s at 25 Hz: K2 full mode and K3), held to its NIS bracket; the
    four-filter stack (``--full-stack-seconds`` at 50 Hz, every filter's
    generic solo functions; 10 s, cut from the example's 30), held to the
-   example's five checks and all filters finite.
+   example's five checks and all filters finite;
+32. (after 17) runs ``torch.func.vmap`` over the solo filter functions
+   (``phase_vmap``): (a) the vmap rules of K1 and K12 at bank 131 072 and of
+   K8 at 256 systems (right-hand sides batched, then shared), each vmapped
+   call bit for bit against one banked call, one launch, and held to the
+   kernel's plain version; (b) ``vmap_filter(pose_ukf.predict)`` and the
+   five mission-tick updates under ``masked`` for 100 ticks at bank 4096
+   (one K1 launch per sigma-point draw), timed beside the generic bank
+   forms, instances 0-63 held to a CPU float64 run within the trajectory
+   guard's bounds; the VelocityUKF's vmapped solo predict at bank 65 536
+   against K6; (c) the survey smoother over 64 trajectories whose dt
+   differs (half at 0.02 s, half jittered ±1% from ``--seed``): finite,
+   smoothed trace ≤ filtered, the shared-dt half held to the bank form.
 
 A kernel under 1 ms is also timed on the card alone (``_device_ms``: the
 calls held behind a spin kernel, so the host's time to enqueue each is
@@ -193,8 +205,8 @@ IndirectPoseUKF rates, the smoother's times and ATE, the marker-aided rate
 and the marker trajectory's differences, the measured FMA and memory
 ceilings, the delayed fixes' times and shares, the class's per-tick
 latency and pose differences, the fleet-operations figures (filter-steps/s,
-NEES, ms a tick plain and guarded, checkpoint bytes and seconds), each new
-phase's seconds, and a JSON object
+NEES, ms a tick plain and guarded, checkpoint bytes and seconds), the vmap
+phase's checks and times, each new phase's seconds, and a JSON object
 with the kernel table. The last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 
@@ -505,11 +517,14 @@ def _lanes_view(key: str, args: tuple) -> tuple:
     return args
 
 
-def compare(name: str, label: str, args: tuple, stats: dict | None = None) -> None:
+def compare(name: str, label: str, args: tuple, stats: dict | None = None, kernel=None) -> None:
     """Run kernel ``name`` (K1, K8 and K12 also ``<name>[bank-first]``) and
     its plain version on ``args``, log the errors beside the limit and raise
-    past it; keep the float32 max abs error per kernel in ``stats``."""
+    past it; keep the float32 max abs error per kernel in ``stats``.
+    ``kernel``, where given, is called on ``args`` in the wrapper's place
+    (the vmapped entry point, which reaches the kernel through its rule)."""
     kern, plain = _pair(name)
+    kern = kernel or kern
     ko, po = kern(*args), plain(*args)
     torch.cuda.synchronize()
     if name.endswith("[bank-first]"):  # outputs (N, 2n+1, n), (N, n, k) or (N, n, n) as lanes views
@@ -2308,34 +2323,6 @@ def phase_marker_trajectory(device, ticks: int):
     return launches
 
 
-def survey_inputs(spec, nb: int, gen: torch.Generator):
-    """The fleet survey's schedule for a bank of ``nb`` trajectories, (T, nb,
-    …): every stream with its own noise per trajectory and tick, drawn on the
-    card from ``gen`` (gyro, acceleration, DVL, pressure, GPS), the validity
-    flags of the schedule (DVL 5 Hz, pressure 10 Hz, a fix every 30 s)."""
-    from slam_uwv_kalman_filters_tpu_torch.models import pose_driver as drv
-
-    n, dev, dtype = spec.gyro.shape[0], spec.gyro.device, spec.gyro.dtype
-    noisy = lambda clean, sigma: clean[:, None] + float(sigma) * torch.randn(
-        n, nb, *clean.shape[1:], generator=gen, dtype=dtype, device=dev)
-    cov = lambda c: c.expand(n, nb, *c.shape)
-    flag = lambda f: f[:, None].expand(n, nb)
-    sigma = torch.tensor([float(spec.gps_lat_sigma), float(spec.gps_lon_sigma)], dtype=dtype, device=dev)
-    return drv.PoseInputs(
-        dt=torch.full((n, nb), float(spec.dt), dtype=dtype, device=dev),
-        rotation_rate=noisy(spec.gyro, spec.gyro_sigma),
-        acc=noisy(spec.acc, spec.acc_sigma), acc_cov=cov(spec.acc_cov),
-        acc_valid=torch.ones((n, nb), dtype=torch.bool, device=dev),
-        dvl=noisy(spec.dvl, spec.dvl_sigma), dvl_cov=cov(spec.dvl_cov), dvl_valid=flag(spec.dvl_valid),
-        pressure=noisy(spec.pressure, spec.pressure_sigma), pressure_cov=cov(spec.pressure_cov),
-        pressure_valid=flag(spec.pressure_valid),
-        xy=None, xy_cov=None, xy_valid=None, adcp=None, adcp_cov=None, adcp_cell_weighting=None, adcp_valid=None,
-        efforts=None, efforts_cov=None, efforts_valid=None,
-        gps=spec.gps[:, None] + sigma * torch.randn(n, nb, 2, generator=gen, dtype=dtype, device=dev),
-        gps_cov=cov(spec.gps_cov), gps_valid=flag(spec.gps_valid),
-    )
-
-
 def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict):
     """The sixth main path: survey post-processing. The fleet survey of
     ``fleet_setup.build_fleet_setup`` (surface fixes every 30 s) at 50 Hz
@@ -2355,6 +2342,7 @@ def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict
     from slam_uwv_kalman_filters_tpu_torch.models import pose_smoother as sm
     from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
     from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+    from slam_uwv_kalman_filters_tpu_torch.tools.float32_drift import survey_inputs
 
     state, params, spec = fleet_setup.build_fleet_setup(minutes=seconds / 60.0, rate=50.0, dtype_name="f32",
                                                         device=device)
@@ -2406,6 +2394,418 @@ def phase_smoother(device, nb: int, seconds: float, captured: dict, counts: dict
     del out, inputs
     torch.cuda.empty_cache()
     return launches, {"ticks": n, "bank": nb, "forward_s": fwd, "backward_s": bwd, "ate": stats}
+
+
+# ---------------------------------------------------------------------------
+# torch.func.vmap over the solo filter functions: the vmap rules of K1, K8
+# and K12 (phase_vmap)
+# ---------------------------------------------------------------------------
+
+# (a) the rules at the mission bank (K1, K12) and at the smoother's bank of
+# systems (K8); (b) the PoseUKF bank of vmapped solo functions, held to a CPU
+# float64 run of its first instances, and the VelocityUKF bank of vmapped
+# solo predicts; (c) the smoother bank whose dt differs across trajectories
+VMAP_RULE_BANK = 131072
+VMAP_SOLVE_SYSTEMS = 256
+VMAP_POSE_BANK = 4096
+VMAP_POSE_TICKS = 100
+VMAP_REFERENCE = 64
+VMAP_VELOCITY_BANK = 65536
+VMAP_VELOCITY_STEPS = 100
+VMAP_SMOOTHER_BANK = 64
+VMAP_SMOOTHER_SECONDS = 10.0
+# the trajectory guard's bounds (phase_trajectory): two float32 paths each
+# within them of float64
+VMAP_POSE_LIMITS = {"position_m": 1.0e-3, "orientation_rad": 2.6e-5}
+# the smoother bank's shared-dt half, the vmapped generic passes against the
+# bank form (K2, K3 forward; K1, K8 backward), both float32: 3x what the
+# plain path drifts in float32 from its float64 self over the same 10-s
+# survey from the same start distribution at bank 32 on the CPU
+# (``tools/float32_drift.py``: 1.07e-2 m, 2.84e-5 rad), as phase_trajectory's
+# bounds are set; the mission guard's bounds above are for a 100 Hz mission
+# near the origin, this survey runs 50 Hz dead reckoning up to 20 m out
+# after one fix
+VMAP_SMOOTHER_LIMITS = {"position_m": 3.2e-2, "orientation_rad": 8.5e-5}
+# the vmapped generic VelocityUKF predict against K6, both float32, after 100
+# steps, as |Δ|/(1 + |ref|) of the velocity, the depth and the covariance:
+# two float32 paths that round each step in another order drift apart by a
+# few ε (1.19e-7) a step, so 1e-4 is 100 steps of ~8 ε (the plain path's own
+# drift from float64: ``tools/float32_drift.py``; K6's is measured beside it
+# in the phase)
+VMAP_VELOCITY_LIMIT = 1e-4
+
+
+def _launch_counts() -> dict:
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+
+    return {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+
+
+def vmap_rule_checks(device, gen: torch.Generator, total: dict) -> dict:
+    """(a) Each rule, bit for bit: ``torch.func.vmap`` of the solo entry
+    point (``sigma_deltas_fast`` and ``cholesky_fast`` on one 53×53 matrix,
+    ``solve_spd_fast`` on one 53×53 system with 53 right-hand sides, batched
+    and then shared) against one banked call on the same stack; each vmapped
+    call counted alone (one launch of its kernel and none other), held to
+    the kernel's plain version as the checks of 1 hold the kernels, and
+    timed beside the banked call. Adds the vmapped calls' launches to
+    ``total``."""
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib, kernels
+
+    f32, out = torch.float32, {}
+    cov = cholesky_check_operands(53, VMAP_RULE_BANK, f32, device, gen).permute(2, 1, 0).contiguous()
+    a_t, b_t = solve_check_operands(VMAP_SOLVE_SYSTEMS, f32, device, gen, ill=False)
+    spd, rhs = a_t.permute(2, 1, 0).contiguous(), b_t.permute(2, 0, 1).contiguous()
+    shared = rhs[0]
+    cases = (
+        ("sigma_deltas", "K1 sigma deltas", torch.func.vmap(kernels.sigma_deltas_fast), kernels.sigma_deltas_banked,
+         (cov,), (cov,)),
+        ("cholesky", "K12 Cholesky", torch.func.vmap(kernels.cholesky_fast), kernels.cholesky_banked, (cov,), (cov,)),
+        ("solve_spd", "K8 solve, right-hand sides batched", torch.func.vmap(kernels.solve_spd_fast),
+         kernels.solve_spd_banked, (spd, rhs), (spd, rhs)),
+        ("solve_spd", "K8 solve, right-hand sides shared", torch.func.vmap(kernels.solve_spd_fast, in_dims=(0, None)),
+         kernels.solve_spd_banked, (spd, shared), (spd, shared.expand(VMAP_SOLVE_SYSTEMS, 53, 53))),
+    )
+    for name, label, vmapped, banked, args, stacked in cases:
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        got = vmapped(*args)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        for k, v in launches.items():
+            total[k] += v
+        ref = banked(*stacked)
+        torch.cuda.synchronize()
+        same = _bits_equal(got, ref)
+        nb = stacked[0].shape[0]
+        log(f"vmap rule {label}: bank {nb} float32, vmapped call bit-equal to the banked call: {same}; "
+            f"launches {launches}")
+        if not same or launches != {**_NONE, name: 1}:
+            raise AssertionError(f"vmap rule {label}: bits equal {same}, launches {launches}")
+        lifted = vmapped if len(args) == 1 or args[1].ndim == 3 else (lambda a, b: vmapped(a, b[0]))
+        compare(f"{name}[bank-first]", f"{name} under vmap ({label}) at bank {nb}", stacked, kernel=lifted)
+        del got, ref
+        ms_v, ms_b = _time(lambda: vmapped(*args), 5), _time(lambda: banked(*stacked), 5)
+        log(f"vmap rule {label}: {ms_v:.3f} ms vmapped against {ms_b:.3f} ms banked (bank {nb}, the call's wall "
+            f"time from CUDA events)")
+        out[label] = {"bank": nb, "bits_equal": same, "launches": launches[name], "vmapped_ms": ms_v,
+                      "banked_ms": ms_b}
+    del cov, spd, rhs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pose_vmap_updates():
+    """The five mission-tick updates: (stream, firing rule, the solo update,
+    its extra arguments, the bank update of the same measurement)."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
+    from slam_uwv_kalman_filters_tpu_torch.tools import roofline
+
+    return (
+        ("acc", lambda k: True, pukf.update_acceleration, (), pukf.update_acceleration_bank),
+        ("dvl", roofline.DVL_AT, pukf.update_velocity, (), pukf.update_velocity_bank),
+        ("press", roofline.PRESS_AT, pukf.update_pressure, (), pukf.update_pressure_bank),
+        ("adcp", roofline.ADCP_AT, pukf.update_water_velocity, (0.5,),
+         lambda s, p, z, r, cw: pukf.update_water_velocity_bank(s, p, z, r, cw)),
+        ("eff", roofline.EFF_AT, pukf.update_body_efforts, (),
+         lambda s, p, z, r: pukf.update_body_efforts_bank(s, p, z, r, pukf.get_rotation_rate_bank(s, p))),
+    )
+
+
+def vmap_pose_bank(device, seed: int, total: dict) -> dict:
+    """(b) The PoseUKF's solo functions vmapped over a bank: bench.py's
+    mission schedule (acceleration every tick, DVL 5 Hz, pressure 2 Hz, ADCP
+    1 Hz χ²-gated, body efforts 10 Hz) for ``VMAP_POSE_TICKS`` ticks at bank
+    ``VMAP_POSE_BANK``, float32, through ``vmap_filter(pose_ukf.predict)``
+    and ``masked(vmap_filter(update))`` from perturbed mission starts, each
+    measurement with its own noise (its covariance's σ) and its own validity
+    (90% of the instances) per firing, from the trajectory guard's starts;
+    counted (one K1 launch per sigma-point draw and
+    nothing else), timed against the generic bank forms on the card at the
+    same bank (the fused route switched off), and its first
+    ``VMAP_REFERENCE`` instances held to the same ticks through the generic
+    bank forms on the CPU in float64 within the trajectory guard's bounds."""
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_ukf as pukf
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+
+    nb, ticks, f64 = VMAP_POSE_BANK, VMAP_POSE_TICKS, torch.float64
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    bs64, params64, meas64 = mission_setup(nb, f64, device)
+    # the trajectory guard's starts: the initial covariance, the mean moved
+    # by a draw from it (position 0.1 m, velocity 0.05 m/s)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, dtype=f64, device=device)
+    bs64 = bs64._replace(mu=bs64.mu._replace(position=bs64.mu.position + 0.1 * rn(nb, 3), velocity=0.05 * rn(nb, 3)))
+    sigma = {"acc": 2e-3, "dvl": 0.03, "press": 50.0, "adcp": 0.03, "eff": 1.0}
+    updates = _pose_vmap_updates()
+    draws = []
+    for k in range(ticks):
+        tick = {}
+        for key, fires, *_ in updates:
+            if fires(k):
+                z0 = meas64[key][0]
+                tick[key] = (z0 + sigma[key] * torch.randn(z0.shape, generator=gen, dtype=f64, device=device),
+                             torch.rand(nb, generator=gen, device=device) < 0.9)
+        draws.append(tick)
+    to = lambda tree, dtype, dev: bank.tree_map(lambda a: a.to(dev, dtype), tree)
+    cov_of = {key: meas64[key][1] for key in meas64}
+
+    def run(state, params, predict, update, sl, dtype, dev):
+        for k in range(ticks):
+            state = predict(state, params, DT)
+            for key, fires, solo, extra, banked in updates:
+                if key in draws[k]:
+                    z, valid = draws[k][key]
+                    state, _ = update[key](state, valid[sl].to(dev), params, z[sl].to(dev, dtype),
+                                           cov_of[key].to(dev, dtype), *extra)
+        return state
+
+    vmapped = ({key: bank.masked(bank.vmap_filter(solo, data_axes=(0, None) + (None,) * len(extra)))
+                for key, fires, solo, extra, banked in updates})
+    banked = {key: bank.masked(fn) for key, fires, solo, extra, fn in updates}
+    vpredict = bank.vmap_filter(pukf.predict, data_axes=None)
+    bs32, params32 = to(bs64, torch.float32, device), to(params64, torch.float32, device)
+    all_ = slice(None)
+    draws_count = ticks + sum(len(t) for t in draws)
+    run(bs32, params32, vpredict, vmapped, all_, torch.float32, device)  # warm
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    out32 = run(bs32, params32, vpredict, vmapped, all_, torch.float32, device)
+    torch.cuda.synchronize()
+    vmap_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    launches = _launch_counts()
+    for k, v in launches.items():
+        total[k] += v
+    with patched((pukf, "_fused_route", lambda bs: False)):
+        run(bs32, params32, pukf.predict_bank, banked, all_, torch.float32, device)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generic32 = run(bs32, params32, pukf.predict_bank, banked, all_, torch.float32, device)
+        torch.cuda.synchronize()
+        generic_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    cpu = torch.device("cpu")
+    sl = slice(0, VMAP_REFERENCE)
+    t0 = time.perf_counter()
+    ref = run(bank.tree_map(lambda a: a[sl].to(cpu), bs64), to(params64, f64, cpu), pukf.predict_bank, banked, sl,
+              f64, cpu)
+    cpu_s = time.perf_counter() - t0
+    mine = bank.tree_map(lambda a: a[sl].to(cpu, f64), out32)
+    finite = all(bool(torch.isfinite(x).all()) for x in (out32.cov, out32.mu.position, generic32.cov))
+    dpos = (mine.mu.position - ref.mu.position).norm(dim=1).max().item()
+    dang = mf.so3_boxminus(mine.mu.orientation, ref.mu.orientation).norm(dim=1).max().item()
+    gpos = (generic32.mu.position[sl].to(cpu, f64) - ref.mu.position).norm(dim=1).max().item()
+    per_tick = launches["sigma_deltas"] / ticks
+    log(f"vmap PoseUKF bank: bank {nb} float32 {ticks} ticks, vmapped solo functions {vmap_ms:.3f} ms a tick "
+        f"against the generic bank forms' {generic_ms:.3f} ms ({vmap_ms / generic_ms:.2f}x); K1 launches "
+        f"{launches['sigma_deltas']} ({per_tick:.2f} a tick, one per sigma-point draw: {draws_count} draws); "
+        f"instances 0-{VMAP_REFERENCE - 1} against the CPU float64 bank forms ({cpu_s:.1f} s): "
+        f"max|Δposition| {dpos:.3e} m (limit {VMAP_POSE_LIMITS['position_m']:.1e}), max|Δorientation| {dang:.3e} "
+        f"rad (limit {VMAP_POSE_LIMITS['orientation_rad']:.1e}); the generic bank forms' {gpos:.3e} m; "
+        f"launches {launches}")
+    if launches != {**_NONE, "sigma_deltas": draws_count}:
+        raise AssertionError(f"vmap PoseUKF bank: expected {draws_count} K1 launches and nothing else: {launches}")
+    if not finite or dpos > VMAP_POSE_LIMITS["position_m"] or dang > VMAP_POSE_LIMITS["orientation_rad"]:
+        raise AssertionError(f"vmap PoseUKF bank left the CPU float64 run: finite {finite}, {dpos:.3e} m, "
+                             f"{dang:.3e} rad")
+    return {"bank": nb, "ticks": ticks, "vmapped_ms_per_tick": vmap_ms, "generic_bank_ms_per_tick": generic_ms,
+            "k1_launches": launches["sigma_deltas"], "k1_per_tick": per_tick, "sigma_draws": draws_count,
+            "max_position_m": dpos, "max_orientation_rad": dang, "generic_max_position_m": gpos}
+
+
+def vmap_velocity_bank(device, seed: int, total: dict) -> dict:
+    """(b) The VelocityUKF's solo ``integrate_body_efforts`` and ``predict``
+    vmapped over bank ``VMAP_VELOCITY_BANK`` (perturbed means, covariances,
+    tracker poses; new efforts per instance each step) for
+    ``VMAP_VELOCITY_STEPS`` steps of 0.05 s, float32, against
+    ``velocity_ukf.predict_bank`` (K6) on the same efforts; counted (K1
+    once a step) and timed beside it; both float32 paths' distance from the
+    vmapped path in float64 is printed beside."""
+    from slam_uwv_kalman_filters_tpu_torch.models import velocity_ukf as vu
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+    from slam_uwv_kalman_filters_tpu_torch.tools import small_kernel_times as skt
+
+    nb, steps = VMAP_VELOCITY_BANK, VMAP_VELOCITY_STEPS
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    bs, params = skt.velocity_setup(nb, torch.float32, device, gen)
+    efforts = [30.0 * torch.randn(nb, 6, generator=gen, device=device) for _ in range(steps)]
+    integrate = torch.func.vmap(vu.integrate_body_efforts)
+    predict = bank.vmap_filter(vu.predict, data_axes=None)
+
+    def run_vmapped(s):
+        for e in efforts:
+            s = predict(integrate(s, e), params, 0.05)
+        return s
+
+    def run_kernel(s):
+        for e in efforts:
+            s = vu.predict_bank(s._replace(body_efforts=e), params, 0.05)
+        return s
+
+    to64 = lambda tree: bank.tree_map(lambda a: a.double(), tree)
+    params64 = to64(params)
+    predict64 = bank.vmap_filter(vu.predict, data_axes=None)
+
+    def run_float64(s):
+        for e in efforts:
+            s = predict64(integrate(s, e.double()), params64, 0.05)
+        return s
+
+    run_vmapped(bs)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    mine = run_vmapped(bs)
+    torch.cuda.synchronize()
+    vmap_ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = _launch_counts()
+    for k, v in launches.items():
+        total[k] += v
+    run_kernel(bs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = run_kernel(bs)
+    torch.cuda.synchronize()
+    kernel_ms = 1e3 * (time.perf_counter() - t0) / steps
+    f64 = run_float64(to64(bs))
+
+    def diffs(a, b):
+        return {"velocity": _rel(a.mu.velocity.double(), b.mu.velocity.double()),
+                "z": _rel(a.mu.z_position.double(), b.mu.z_position.double()),
+                "cov": _rel(a.cov.double(), b.cov.double())}
+
+    d, d_vmap64, d_k6_64 = diffs(mine, ref), diffs(mine, f64), diffs(ref, f64)
+    finite = bool(torch.isfinite(mine.cov).all()) and bool(torch.isfinite(mine.mu.velocity).all())
+    fmt = lambda x: ", ".join(f"{k} {v:.3e}" for k, v in x.items())
+    log(f"vmap VelocityUKF bank: bank {nb} float32 {steps} steps, vmapped solo predict {vmap_ms:.3f} ms a step "
+        f"against predict_bank (K6) {kernel_ms:.3f} ms; |Δ|/(1 + |K6|) {fmt(d)} (limit {VMAP_VELOCITY_LIMIT:.1e}); "
+        f"from the vmapped float64 path: vmapped float32 {fmt(d_vmap64)}, K6 {fmt(d_k6_64)}; launches {launches}")
+    if launches != {**_NONE, "sigma_deltas": steps}:
+        raise AssertionError(f"vmap VelocityUKF bank: expected {steps} K1 launches and nothing else: {launches}")
+    if not finite or max(d.values()) > VMAP_VELOCITY_LIMIT:
+        raise AssertionError(f"vmap VelocityUKF bank left K6: finite {finite}, {d}")
+    return {"bank": nb, "steps": steps, "vmapped_ms_per_step": vmap_ms, "kernel_ms_per_step": kernel_ms,
+            "rel_to_k6": d, "vmapped_rel_to_float64": d_vmap64, "k6_rel_to_float64": d_k6_64,
+            "k1_launches": launches["sigma_deltas"]}
+
+
+def vmap_smoother_bank(device, seed: int, total: dict) -> dict:
+    """(c) The survey smoother over a bank whose dt differs across its
+    trajectories: the fleet survey's schedule (``tools.float32_drift.survey_inputs``) for
+    ``VMAP_SMOOTHER_SECONDS`` at 50 Hz over ``VMAP_SMOOTHER_BANK``
+    trajectories, float32; the first half at dt 0.02 s, the second with a
+    ±1% jitter per tick and trajectory from ``seed``, so both passes of
+    ``run_trajectory_smoothed`` run vmapped over the trajectories (K1 per
+    sigma-point draw, K8 once a backward tick). Holds both passes finite,
+    every trajectory's mean smoothed covariance trace to no more than its
+    mean filtered trace, and the first half to the shared-dt bank form's
+    output for it (``pose_step_bank``, then one banked smooth step a tick)
+    within ``VMAP_SMOOTHER_LIMITS``; prints both passes' seconds."""
+    from slam_uwv_kalman_filters_tpu_torch.models import fleet_setup, monte_carlo
+    from slam_uwv_kalman_filters_tpu_torch.models import pose_smoother as sm
+    from slam_uwv_kalman_filters_tpu_torch.ops import cuda_lib
+    from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as mf
+    from slam_uwv_kalman_filters_tpu_torch.parallel import bank
+    from slam_uwv_kalman_filters_tpu_torch.tools.float32_drift import survey_inputs
+
+    nb, half = VMAP_SMOOTHER_BANK, VMAP_SMOOTHER_BANK // 2
+    state, params, spec = fleet_setup.build_fleet_setup(minutes=VMAP_SMOOTHER_SECONDS / 60.0, rate=50.0,
+                                                        dtype_name="f32", device=device)
+    n = spec.gyro.shape[0]
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    bs = monte_carlo.perturb_initial_bank(bank.replicate(state, nb), gen, pos_sigma=0.05, vel_sigma=0.05,
+                                          yaw_sigma=3e-3)
+    inputs = survey_inputs(spec, nb, gen)
+    jitter = 1.0 + 0.01 * (2.0 * torch.rand(n, nb - half, generator=gen, device=device) - 1.0)
+    dt = torch.cat([inputs.dt[:, :half], inputs.dt[:, half:] * jitter], dim=1)
+    inputs = inputs._replace(dt=dt)
+    marks = {}
+    solo_backward = sm._smooth_backward_solo
+
+    def timed_backward(*args):
+        torch.cuda.synchronize()
+        marks["backward"] = time.perf_counter()
+        return solo_backward(*args)
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched((sm, "_smooth_backward_solo", timed_backward)):
+        out = sm.run_trajectory_smoothed(bs, params, inputs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = _launch_counts()
+    for k, v in launches.items():
+        total[k] += v
+    fwd, bwd = marks["backward"] - t0, t1 - marks["backward"]
+    streams = sum(getattr(inputs, f) is not None for f in ("acc", "dvl", "pressure", "xy", "adcp", "efforts", "z",
+                                                          "gps", "delayed_xy", "marker_features"))
+    expect = {**_NONE, "sigma_deltas": n * (1 + streams) + n - 1, "solve_spd": n - 1}
+    finite = all(bool(torch.isfinite(x).all()) for x in (out.filtered_cov, out.smoothed_cov,
+                                                          out.filtered_mu.position, out.smoothed_mu.position))
+    ftr = torch.diagonal(out.filtered_cov, dim1=-2, dim2=-1).sum(-1).mean(0)
+    st = torch.diagonal(out.smoothed_cov, dim1=-2, dim2=-1).sum(-1).mean(0)
+    first = lambda tree: bank.tree_map(lambda a: a[:, :half], tree)
+    shared_in = type(inputs)(*(None if x is None else x[:, :half] for x in inputs))
+    t2 = time.perf_counter()
+    ref = sm.run_trajectory_smoothed(bank.tree_map(lambda a: a[:half], bs), params, shared_in)
+    torch.cuda.synchronize()
+    shared_s = time.perf_counter() - t2
+    diffs = {}
+    for name in ("filtered", "smoothed"):
+        a, b = first(getattr(out, f"{name}_mu")), getattr(ref, f"{name}_mu")
+        diffs[f"{name}_position_m"] = (a.position.double() - b.position.double()).norm(dim=-1).max().item()
+        diffs[f"{name}_orientation_rad"] = mf.so3_boxminus(a.orientation.double(), b.orientation.double()).norm(
+            dim=-1).max().item()
+    worst_pos = max(diffs["filtered_position_m"], diffs["smoothed_position_m"])
+    worst_ang = max(diffs["filtered_orientation_rad"], diffs["smoothed_orientation_rad"])
+    excess = ((st - ftr) / ftr).max().item()
+    log(f"vmap survey smoother: bank {nb} ({half} at dt 0.02 s, {nb - half} jittered ±1%) {n} ticks float32, "
+        f"vmapped forward {fwd:.3f} s, backward {bwd:.3f} s ({1e3 * fwd / n:.3f} / {1e3 * bwd / (n - 1):.3f} ms a "
+        f"tick); the shared-dt half through the bank form {shared_s:.3f} s; max over trajectories of (mean tr Pˢ − "
+        f"mean tr P)/mean tr P = {excess:.3e} (limit 0); shared-dt half against the bank form: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+        + f" (limits {VMAP_SMOOTHER_LIMITS['position_m']:.1e} m, {VMAP_SMOOTHER_LIMITS['orientation_rad']:.1e} rad); "
+        f"launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"vmap survey smoother: expected launches {expect}, got {launches}")
+    if not finite or excess > 0.0:
+        raise AssertionError(f"vmap survey smoother: finite {finite}, smoothed trace above filtered by {excess:.3e}")
+    if worst_pos > VMAP_SMOOTHER_LIMITS["position_m"] or worst_ang > VMAP_SMOOTHER_LIMITS["orientation_rad"]:
+        raise AssertionError(f"vmap survey smoother: the shared-dt half left the bank form: {diffs}")
+    del out, ref
+    torch.cuda.empty_cache()
+    return {"bank": nb, "ticks": n, "forward_s": fwd, "backward_s": bwd, "shared_bank_form_s": shared_s,
+            "trace_excess": excess, **diffs, "k1_launches": launches["sigma_deltas"],
+            "k8_launches": launches["solve_spd"]}
+
+
+def phase_vmap(device, seed: int):
+    """``torch.func.vmap`` over the port's solo filter functions, through the
+    vmap rules of K1, K8 and K12: (a) :func:`vmap_rule_checks`, (b)
+    :func:`vmap_pose_bank` and :func:`vmap_velocity_bank`, (c)
+    :func:`vmap_smoother_bank`. Returns the launches of the vmapped runs
+    (each counted alone, the counters zeroed just before it and read just
+    after) and the figures."""
+    total = dict(_NONE)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    figures = {}
+    t0 = time.perf_counter()
+    figures["rules"] = vmap_rule_checks(device, gen, total)
+    log(f"phase vmap (a) rules: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    figures["pose_bank"] = vmap_pose_bank(device, seed, total)
+    log(f"phase vmap (b) PoseUKF bank: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    figures["velocity_bank"] = vmap_velocity_bank(device, seed, total)
+    log(f"phase vmap (b) VelocityUKF bank: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    figures["smoother"] = vmap_smoother_bank(device, seed, total)
+    log(f"phase vmap (c) smoother: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return total, figures
 
 
 # ---------------------------------------------------------------------------
@@ -2915,6 +3315,8 @@ def main() -> int:
     parser.add_argument("--full-stack-seconds", type=float, default=10.0,
                         help="four-filter example seconds at 50 Hz (default 10, cut from the example's 30, which took "
                              "71 s on an H100 80GB HBM3)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the vmap phase's draws (starts, measurement noise, validity, dt jitter)")
     parser.add_argument("--smoother-seconds", type=float, default=60.0,
                         help="survey smoother seconds at 50 Hz (default 60; 40 still spans the fixes at 0 s and "
                              "30 s)")
@@ -3078,6 +3480,9 @@ def main() -> int:
         smoother[f"{name}_times_ms"] = dict(zip(TIME_FIELDS, backward[name]))
     del captured
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vmap_launches, vmap_figures = phase_vmap(device, args.seed)
+    log(f"phase vmap: {time.perf_counter() - t0:.1f} s")
     fleet = phase_fleet_ate(device, args.fleet_bank, args.fleet_minutes)
     phase_trajectory(device, args.ticks)
     t0 = time.perf_counter()
@@ -3112,7 +3517,7 @@ def main() -> int:
         "pose_class": class_launches, "fleet_ops": fleet_ops_launches,
         "online_estimator_aot": estimator_aot_launches, "icra18_mission": icra_launches,
         "icra18_mission_smoothed": icra_smooth_launches,
-        "noise_tuning_sweep": sweep_launches, "full_stack_auv": full_stack_launches,
+        "noise_tuning_sweep": sweep_launches, "full_stack_auv": full_stack_launches, "vmap": vmap_launches,
     }
     missing = [name for name in cuda_lib.KERNELS if not sum(p[name] for p in paths.values())]
     if missing:
@@ -3147,7 +3552,7 @@ def main() -> int:
         "velocity_bank": args.velocity_bank, "bottom_filter_steps_per_s": rate_bottom,
         "bottom_bank": BOTTOM_BANK, "indirect_filter_steps_per_s": rate_indirect, "indirect_bank": INDIRECT_BANK,
         "marker_mission_ticks_per_s": rate_marker,
-        "survey_smoother": smoother,
+        "survey_smoother": smoother, "vmap": vmap_figures,
         "measured_fma_flops_per_s": fma, "measured_hbm_bytes_per_s": hbm,
         "cholesky_bank_ms": cholesky_ms, "delayed_fixes": delayed, "pose_class": pose_class, "fleet_ops": fleet_ops,
         "dtype": "float32", "device_idle_share": idle, "fleet_ate": fleet, "card": smi,

@@ -191,13 +191,10 @@ def _update_markers_generic(bstate: IndirectPoseUKFState, feats, fcovs, fpos, mp
     the marker pose (B, 3) / (B, 4), cov_marker (6, 6), the camera
     extrinsics (3,) / (4,). Returns the marginalized state and the infos on a
     (B, K) axis."""
-    nb, k = feats.shape[:2]
+    k = feats.shape[1]
     _check_corners(k, fpos.shape[0], fcovs.shape[1])
-    dtype, dev = bstate.cov.dtype, bstate.cov.device
     aug_mu = PoseErrorStateWithMarker(bstate.mu.position_error, bstate.mu.orientation_error, mpos, mrot)
-    aug_cov = torch.zeros(nb, 12, 12, dtype=dtype, device=dev)
-    aug_cov[:, :6, :6] = bstate.cov
-    aug_cov[:, 6:, 6:] = cov_marker
+    aug_cov = ukf.augment_covariance(bstate.cov, cov_marker)
     ref_q, ref_p = bstate.pose_ref_orientation, bstate.pose_ref_position
     infos = []
     for i in range(k):

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import ukf
+from ..ops.cuda_lib import is_vmapped
 from ..parallel.bank import select_where
 from ..utils.device import resolve_device
 from . import pose_fused as pf
@@ -331,9 +332,13 @@ def _replay(step, state, inputs: PoseInputs):
     the outputs. A tick on which no filter has a marker detection runs
     without the marker stream (its masked update would keep every prior)
     and records a marker NIS of 0: one host read of the marker flags per
-    replay."""
+    replay. Under ``torch.func.vmap`` the flags are per instance and cannot
+    be read on the host, so every tick runs the marker update masked, as
+    JAX does."""
     n = inputs.dt.shape[0]
-    marker_on = None if inputs.marker_valid is None else inputs.marker_valid.reshape(n, -1).any(1).tolist()
+    marker_on = None
+    if inputs.marker_valid is not None and not is_vmapped(inputs.marker_valid):
+        marker_on = inputs.marker_valid.reshape(n, -1).any(1).tolist()
     outs = []
     for k in range(n):
         inp = _tick(inputs, k)

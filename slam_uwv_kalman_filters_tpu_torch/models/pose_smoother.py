@@ -9,8 +9,9 @@ Rauch–Tung–Striebel smoother (``ops.ukf.smooth_step``) on top of the replay
 driver:
 
 * forward: :func:`models.pose_driver.pose_step` (one trajectory) or
-  :func:`models.pose_driver.pose_step_bank` (a bank of trajectories, the
-  fused kernels on the card), storing every filtered posterior (μₖ, Pₖ). A
+  :func:`models.pose_driver.pose_step_bank` (a bank of trajectories that
+  share one dt a tick, the fused kernels on the card), storing every
+  filtered posterior (μₖ, Pₖ). A
   sensor stream that no trajectory offers at a tick is left out of that
   tick, as ``monte_carlo.run_fleet_mission`` leaves it out: a masked update
   with an all-false mask is the identity (JAX runs it masked);
@@ -20,6 +21,11 @@ driver:
   the already-smoothed next state. On the card each backward tick draws its
   sigma points with K1 and solves for the gain with K8 (one (B, 53, 53)
   system per tick). The last tick is its own smoothed estimate.
+
+A bank whose dt differs across its trajectories runs both passes as
+``torch.func.vmap`` of the one-trajectory forms over the bank axis, as JAX
+vmaps its smoother; K1 and K8 reach the whole bank in one launch a tick
+through their vmap rules (``ops/kernels.py``).
 
 Memory: the outputs hold T × B × (54 + 53²) values twice (filtered and
 smoothed), preallocated: 3000 ticks of a 256-trajectory float32 bank are
@@ -33,7 +39,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops import ukf
-from ..parallel.bank import tree_map
+from ..ops.cuda_lib import is_vmapped
+from ..parallel.bank import tree_map, vmap_tree
 from . import pose_driver as drv
 from . import pose_ukf as pukf
 
@@ -72,19 +79,67 @@ def _offered(inputs: drv.PoseInputs) -> dict:
             for flag in _STREAMS if getattr(inputs, flag) is not None}
 
 
-def _check_shared_dt(inputs: drv.PoseInputs) -> None:
-    """Raise ``ValueError`` where a bank's (T, B) dt differs across its
-    trajectories at some tick: the bank forms predict every trajectory with
-    trajectory 0's interval (``pose_step_bank`` takes ``inp.dt[0]``). One
-    host read of the schedule."""
+def _dt_shared(inputs: drv.PoseInputs) -> bool:
+    """Whether a bank's (T, B) dt is one value per tick across its
+    trajectories (one host read of the schedule)."""
     dt = inputs.dt.reshape(inputs.dt.shape[0], -1)
-    varies = (dt != dt[:, :1]).any(-1)
-    if bool(varies.any()):
-        tick = int(varies.nonzero()[0, 0])
-        raise ValueError(
-            f"a smoothed bank needs one dt per tick across its trajectories; at tick {tick} it spans "
-            f"[{float(dt[tick].min())}, {float(dt[tick].max())}] — smooth such trajectories one at a time"
+    return not bool((dt != dt[:, :1]).any())
+
+
+class _Store:
+    """The per-tick outputs of a pass: written into tensors allocated once,
+    or, for values batched by ``torch.func.vmap`` (which cannot be written
+    into an unbatched tensor), kept per tick and stacked at the end."""
+
+    def __init__(self, mu, cov, n_ticks: int, batched: bool):
+        self.batched = batched
+        if batched:
+            self.mus, self.covs = [None] * n_ticks, [None] * n_ticks
+        else:
+            self.mus = tree_map(lambda a: a.new_empty((n_ticks, *a.shape)), mu)
+            self.covs = cov.new_empty((n_ticks, *cov.shape))
+
+    def put(self, k: int, mu, cov) -> None:
+        if self.batched:
+            self.mus[k], self.covs[k] = mu, cov
+        else:
+            tree_map(lambda out, a: out[k].copy_(a), self.mus, mu)
+            self.covs[k].copy_(cov)
+
+    def result(self):
+        if self.batched:
+            return tree_map(lambda *a: torch.stack(a), *self.mus), torch.stack(self.covs)
+        return self.mus, self.covs
+
+
+def _backward(filtered_mu, filtered_cov, params, rotation_rate, dt, batched: bool):
+    """The backward pass over (T, B, …) posteriors, each tick k re-running
+    the transition into k+1 with ``rotation_rate[k + 1]`` (B, 3) and
+    ``dt[k + 1]`` (one interval for the bank); ``batched`` where the values
+    are batched by ``torch.func.vmap``."""
+    n_ticks = filtered_cov.shape[0]
+    take = lambda tree, k: tree_map(lambda a: a[k], tree)
+    mu_s, cov_s = take(filtered_mu, -1), filtered_cov[-1]
+    store = _Store(mu_s, cov_s, n_ticks, batched)
+    store.put(n_ticks - 1, mu_s, cov_s)
+    for k in range(n_ticks - 2, -1, -1):
+        mu_f, cov_f = take(filtered_mu, k), filtered_cov[k]
+        rr_next, dt_next = rotation_rate[k + 1], dt[k + 1]
+        q = pukf.assemble_process_noise(mu_f, params, dt_next)
+        mu_s, cov_s = ukf.smooth_step(
+            pukf.POSE_MANIFOLD, mu_f, cov_f,
+            lambda chi: pukf._process_model(chi, rr_next, params, dt_next), q, mu_s, cov_s,
         )
+        store.put(k, mu_s, cov_s)
+    return store.result()
+
+
+def _smooth_backward_solo(filtered_mu, filtered_cov, params, inputs):
+    """The backward pass of one trajectory, (T, …), as a bank of one."""
+    lift = lambda tree: tree_map(lambda a: a[:, None], tree)
+    mu, cov = _backward(lift(filtered_mu), filtered_cov[:, None], params, inputs.rotation_rate[:, None], inputs.dt,
+                        is_vmapped(filtered_mu, filtered_cov, inputs))
+    return tree_map(lambda a: a[:, 0], mu), cov[:, 0]
 
 
 def smooth_backward(filtered_mu: pukf.PoseState, filtered_cov: torch.Tensor, params: pukf.PoseUKFParams,
@@ -93,57 +148,57 @@ def smooth_backward(filtered_mu: pukf.PoseState, filtered_cov: torch.Tensor, par
     state of every tick on a leading (T,) axis — (T, …) for one
     trajectory, (T, B, …) for a bank, with ``inputs`` shaped as the forward
     pass consumed them. The k → k+1 transition re-uses tick k+1's rotation
-    rate and dt. A bank's dt must be shared across its trajectories at every
-    tick (``inputs.dt[k + 1][0]`` is taken, as ``pose_step_bank`` takes it);
-    a dt that differs raises ``ValueError``. Returns (smoothed_mu,
-    smoothed_cov) shaped like the inputs."""
-    solo = filtered_cov.ndim == 3
-    if not solo:
-        _check_shared_dt(inputs)
-    if solo:
-        filtered_mu, filtered_cov = tree_map(lambda a: a[:, None], filtered_mu), filtered_cov[:, None]
-    n_ticks = filtered_cov.shape[0]
-    smoothed_mu = tree_map(torch.empty_like, filtered_mu)
-    smoothed_cov = torch.empty_like(filtered_cov)
-    take = lambda tree, k: tree_map(lambda a: a[k], tree)
-    mu_s, cov_s = take(filtered_mu, -1), filtered_cov[-1]
-    tree_map(lambda out, a: out[-1].copy_(a), smoothed_mu, mu_s)
-    smoothed_cov[-1].copy_(cov_s)
-    for k in range(n_ticks - 2, -1, -1):
-        mu_f, cov_f = take(filtered_mu, k), filtered_cov[k]
-        rr_next = inputs.rotation_rate[k + 1]
-        dt_next = inputs.dt[k + 1] if solo else inputs.dt[k + 1][0]
-        if solo:
-            rr_next = rr_next[None]
-        q = pukf.assemble_process_noise(mu_f, params, dt_next)
-        mu_s, cov_s = ukf.smooth_step(
-            pukf.POSE_MANIFOLD, mu_f, cov_f,
-            lambda chi: pukf._process_model(chi, rr_next, params, dt_next), q, mu_s, cov_s,
-        )
-        tree_map(lambda out, a: out[k].copy_(a), smoothed_mu, mu_s)
-        smoothed_cov[k].copy_(cov_s)
-    if solo:
-        return tree_map(lambda a: a[:, 0], smoothed_mu), smoothed_cov[:, 0]
-    return smoothed_mu, smoothed_cov
+    rate and dt. A bank whose dt is shared across its trajectories at every
+    tick runs one banked smooth step a tick; where it differs, the
+    one-trajectory pass runs under ``torch.func.vmap`` over the bank axis,
+    so each trajectory keeps its own dt (as JAX's vmapped smoother does).
+    The one-trajectory pass itself runs under ``torch.func.vmap``. Returns
+    (smoothed_mu, smoothed_cov) shaped like the inputs."""
+    if filtered_cov.ndim == 3:
+        return _smooth_backward_solo(filtered_mu, filtered_cov, params, inputs)
+    if _dt_shared(inputs):  # one (B, 53, 53) smooth step a tick (K1 and K8 on the card)
+        return _backward(filtered_mu, filtered_cov, params, inputs.rotation_rate, inputs.dt[:, 0], False)
+    return vmap_tree(_smooth_backward_solo, (1, 1, None, 1), out_dims=1)(filtered_mu, filtered_cov, params, inputs)
+
+
+def _forward(step, state, params, inputs):
+    """The forward pass: every tick's filtered (μ, P). Outside
+    ``torch.func.vmap`` a stream that no trajectory offers at a tick is left
+    out of it (one host read of the flags); under vmap the flags are per
+    trajectory, so every stream runs masked on every tick, as in JAX."""
+    n_ticks = inputs.dt.shape[0]
+    batched = is_vmapped(state, inputs)
+    offered = {} if batched else _offered(inputs)
+    store = _Store(state.mu, state.cov, n_ticks, batched)
+    for k in range(n_ticks):
+        absent = [f for flag, on in offered.items() if not on[k] for f in (flag, *_STREAMS[flag])]
+        state, _ = step(state, params, drv._tick(inputs, k)._replace(**dict.fromkeys(absent)))
+        store.put(k, state.mu, state.cov)
+    return store.result()
+
+
+def _run_solo(state, params, inputs):
+    mus, covs = _forward(drv.pose_step, state, params, inputs)
+    smus, scovs = _smooth_backward_solo(mus, covs, params, inputs)
+    return SmoothedTrajectory(filtered_mu=mus, filtered_cov=covs, smoothed_mu=smus, smoothed_cov=scovs)
 
 
 def run_trajectory_smoothed(state: pukf.PoseUKFState, params: pukf.PoseUKFParams,
                             inputs: drv.PoseInputs) -> SmoothedTrajectory:
     """Forward filter + backward smooth over a packed (T,)-tick schedule: one
-    trajectory (``state.cov`` (53, 53), ``pose_step``) or a bank (``state.cov``
-    (B, 53, 53), inputs (T, B, …), ``pose_step_bank``). A bank whose dt
-    differs across its trajectories at some tick raises ``ValueError``."""
-    n_ticks = inputs.dt.shape[0]
-    step = drv.pose_step_bank if state.cov.ndim == 3 else drv.pose_step
-    if state.cov.ndim == 3:
-        _check_shared_dt(inputs)
-    offered = _offered(inputs)
-    mus = tree_map(lambda a: a.new_empty((n_ticks, *a.shape)), state.mu)
-    covs = state.cov.new_empty((n_ticks, *state.cov.shape))
-    for k in range(n_ticks):
-        absent = [f for flag, on in offered.items() if not on[k] for f in (flag, *_STREAMS[flag])]
-        state, _ = step(state, params, drv._tick(inputs, k)._replace(**dict.fromkeys(absent)))
-        tree_map(lambda out, a: out[k].copy_(a), mus, state.mu)
-        covs[k].copy_(state.cov)
+    trajectory (``state.cov`` (53, 53), ``pose_step``; it runs under
+    ``torch.func.vmap`` too) or a bank (``state.cov`` (B, 53, 53), inputs
+    (T, B, …)). A bank whose dt is shared across its trajectories at every
+    tick runs ``pose_step_bank`` forward (the fused kernels on the card) and
+    one banked smooth step a tick backward (K1 and K8); where the dt
+    differs, both passes run the one-trajectory forms under
+    ``torch.func.vmap`` over the bank axis, so each trajectory keeps its own
+    dt, as JAX's vmapped smoother does (K1 and K8 then launch once a tick
+    for the whole bank through their vmap rules)."""
+    if state.cov.ndim == 2:
+        return _run_solo(state, params, inputs)
+    if not _dt_shared(inputs):
+        return vmap_tree(_run_solo, (0, None, 1), out_dims=1)(state, params, inputs)
+    mus, covs = _forward(drv.pose_step_bank, state, params, inputs)
     smus, scovs = smooth_backward(mus, covs, params, inputs)
     return SmoothedTrajectory(filtered_mu=mus, filtered_cov=covs, smoothed_mu=smus, smoothed_cov=scovs)

@@ -26,6 +26,7 @@ reference's ``PoseUKF`` class over the solo functions.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -460,22 +461,37 @@ def _process_model(chi: PoseState, rotation_rate, params: PoseUKFParams, dt) -> 
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _noise_masks(device: torch.device):
+    """On ``device``: the (53, 53) masks of Q's orientation block and of the
+    water currents' four diagonal entries (46–49)."""
+    so = POSE_MANIFOLD.block("orientation")
+    orient = torch.zeros(53, 53, dtype=torch.bool)
+    orient[so, so] = True
+    water = torch.zeros(53, dtype=torch.bool)
+    water[46:50] = True
+    return orient.to(device), torch.diag(water).to(device)
+
+
 def assemble_process_noise(mu: PoseState, params: PoseUKFParams, dt) -> torch.Tensor:
     """Per-step process noise of ``predictionStepImpl`` for a bank (B, 53, 53):
     rotate the orientation block into the nav frame with the pre-predict
     orientation, inflate the water-current noise with the z-weighted speed,
-    scale the whole Q by dt². ``params`` shared or banked."""
+    scale the whole Q by dt². ``params`` shared or banked. Built by selects,
+    not written in place, so that a state batched by ``torch.func.vmap``
+    goes into the shared noise."""
     q0 = params.process_noise
     nb = mu.position.shape[0]
     so = POSE_MANIFOLD.block("orientation")
+    orient, water = _noise_masks(q0.device)
     rot = mf.quat_to_matrix(mu.orientation)
-    q = q0.expand(nb, 53, 53).clone()
-    q[:, so, so] = rot @ q0[..., so, so] @ rot.transpose(-1, -2)
+    block = (rot @ q0[..., so, so] @ rot.transpose(-1, -2)).to(q0.dtype)
+    pad = (so.start, 53 - so.stop)
+    q = torch.where(orient, torch.nn.functional.pad(block, pad + pad), q0.expand(nb, 53, 53))
     scale = torch.tensor([1.0, 1.0, 10.0], dtype=mu.velocity.dtype, device=mu.velocity.device)
     sv = mu.velocity * scale
     wv_extra = params.water_velocity_scale * (sv * sv).sum(-1) * dt
-    idx = torch.arange(46, 50, device=q.device)
-    q[:, idx, idx] = q[:, idx, idx] + wv_extra[:, None]
+    q = torch.where(water, (q + wv_extra[:, None, None]).to(q.dtype), q)
     return (dt**2 * q).to(q0.dtype)
 
 
@@ -911,14 +927,10 @@ def _update_visual_features_generic(bstate: PoseUKFState, feats, fcovs, fpos, mp
     (4,). The filter ⊕ the marker pose with zero cross-covariance, one S²
     update per corner on the 59-DOF manifold, the filter block marginalized
     back out; the infos on a (B, K) axis."""
-    nb, k = feats.shape[:2]
+    k = feats.shape[1]
     _check_corners(k, fpos.shape[0], fcovs.shape[1], "update_visual_features")
-    dtype, dev = bstate.cov.dtype, bstate.cov.device
     aug_mu = PoseStateWithMarker(*bstate.mu, marker_position=mpos, marker_orientation=mrot)
-    n = POSE_MARKER_MANIFOLD.dof
-    aug_cov = torch.zeros(nb, n, n, dtype=dtype, device=dev)
-    aug_cov[:, :53, :53] = bstate.cov
-    aug_cov[:, 53:, 53:] = cov_marker
+    aug_cov = ukf.augment_covariance(bstate.cov, cov_marker)
     z_all, r_all = pixel_to_s2(feats, camera), pixel_cov_to_s2(fcovs, camera)
     infos = []
     for i in range(k):
@@ -1016,12 +1028,8 @@ def _augmented_delayed_generic(bstate: PoseUKFState, z, meas_cov, delayed_positi
     (B, 2, 2). The filter ⊕ the delayed position with zero cross-covariance,
     the delayed block observed through the shift identity anchored at each
     instance's current mean position, the filter block marginalized back."""
-    nb, dtype, dev = bstate.cov.shape[0], bstate.cov.dtype, bstate.cov.device
     aug_mu = PoseStateWithDelayedPosition(*bstate.mu, delayed_position=delayed_position)
-    n = POSE_DELAYED_MANIFOLD.dof
-    aug_cov = torch.zeros(nb, n, n, dtype=dtype, device=dev)
-    aug_cov[:, :53, :53] = bstate.cov
-    aug_cov[:, 53:, 53:] = cov_delayed_position
+    aug_cov = ukf.augment_covariance(bstate.cov, cov_delayed_position)
     current_xy = bstate.mu.position[:, :2]
 
     def h(chi: PoseStateWithDelayedPosition):

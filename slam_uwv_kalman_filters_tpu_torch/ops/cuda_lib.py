@@ -18,7 +18,11 @@ Each kernel wrapper is also a functional op of the ``slam_uwv`` namespace
 CPU implementation the plain version, and its fake gives the outputs'
 shapes. The entry points call the wrapper straight; under ``torch.export``
 they call the op, so the exported graph records it by name (``utils/aot.py``)
-and a CUDA graph of the loaded program captures its launch.
+and a CUDA graph of the loaded program captures its launch. Under
+``torch.func.vmap`` they call the op too, whose vmap rule (where the kernel
+has one: K1, K8, K12) folds the vmapped axes into the kernel's bank axis, so
+a function written for one filter makes one launch for the whole bank, as
+JAX's ``custom_vmap`` rules do.
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ import time
 from pathlib import Path
 
 import torch
+from torch._C import _functorch
 
 __all__ = ["Kernel", "KERNELS", "KernelOp", "NAMESPACE", "library", "build_info", "chain", "host_array",
-           "kernel_op", "model_ids", "reset_launch_counts", "route", "stream_ptr"]
+           "is_vmapped", "kernel_op", "model_ids", "reset_launch_counts", "route", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -225,6 +230,17 @@ def _call(op, *args):
     return op(*args)
 
 
+def is_vmapped(*tree) -> bool:
+    """True where a tensor of ``tree`` (nested tuples and lists) is batched
+    by ``torch.func.vmap``: such a tensor has no storage of its own, and the
+    code that handles it may neither read it on the host nor write it into
+    an unbatched tensor. Outside any functorch transform it costs one C call
+    and reads no tensor."""
+    if _functorch.maybe_current_level() is None:
+        return False
+    return any(_functorch.is_batchedtensor(t) for t in _tensors(tree))
+
+
 class KernelOp:
     """A kernel wrapper and its op ``slam_uwv::<name>`` (:func:`kernel_op`).
     Called eagerly it goes straight to the wrapper when ``args[lead]`` is a
@@ -233,20 +249,31 @@ class KernelOp:
     (K5 at bank 1 on an H100 80GB HBM3 host, ``chip_smoke.phase_op_dispatch``).
     Under ``torch.export`` it calls the op through ``adapt``, so the graph
     records it by name; a loaded program then calls the op on either
-    device. ``op`` is the op's overload."""
+    device. Under ``torch.func.vmap`` (a batched tensor among the
+    arguments) it calls the op too, whose vmap rule folds the vmapped axes
+    into one call of this :class:`KernelOp` on the unbatched level; an op
+    with no rule raises ``NotImplementedError`` there, since its wrapper
+    cannot read a batched tensor and a loop over instances would not be the
+    kernel. ``op`` is the op's overload."""
 
-    __slots__ = ("op", "cuda", "plain", "lead", "adapt")
+    __slots__ = ("op", "cuda", "plain", "lead", "adapt", "vmap")
 
-    def __init__(self, op, cuda, plain, lead: int = 0, adapt=_call):
-        self.op, self.cuda, self.plain, self.lead, self.adapt = op, cuda, plain, lead, adapt
+    def __init__(self, op, cuda, plain, lead: int = 0, adapt=_call, vmap=None):
+        self.op, self.cuda, self.plain, self.lead, self.adapt, self.vmap = op, cuda, plain, lead, adapt, vmap
 
     def __call__(self, *args):
         if torch.compiler.is_exporting():
             return self.adapt(self.op, *args)
+        if is_vmapped(args):
+            if self.vmap is None:
+                raise NotImplementedError(f"{self.op._schema.name}: this kernel has no vmap rule; call its bank "
+                                          "form on the stacked operands")
+            return self.adapt(self.op, *args)
         return (self.cuda if args[self.lead].is_cuda else self.plain)(*args)
 
 
-def kernel_op(name: str, schema: str, cuda, plain, fake, *, lead: int = 0, impl=None, adapt=_call) -> KernelOp:
+def kernel_op(name: str, schema: str, cuda, plain, fake, *, lead: int = 0, impl=None, adapt=_call,
+              vmap=None) -> KernelOp:
     """Register a kernel wrapper as the functional op ``slam_uwv::<name>``
     (``torch.library.custom_op``) and return it as a :class:`KernelOp`.
     ``cuda`` launches the kernel on CUDA tensors and ``plain`` is its plain
@@ -258,14 +285,22 @@ def kernel_op(name: str, schema: str, cuda, plain, fake, *, lead: int = 0, impl=
     returns what ``fn`` returns (:func:`model_ids`, :func:`chain`). ``fake``
     returns empty outputs of exactly the shapes, dtypes and strides the op's
     CUDA implementation returns. The op's outputs are fresh tensors, never
-    an input's, so export needs no copy. The kernel wrappers count their
-    launches; the op adds nothing to the counts."""
+    an input's, so export needs no copy. ``vmap(call, in_dims, *args)``,
+    where given, is the op's vmap rule: it gets the arguments of one vmap
+    level unwrapped with their batch dims (``None`` for an unbatched one)
+    and returns ``(output, out_dims)``, computing the output by one
+    ``call(*folded)`` of the returned :class:`KernelOp` (the kernel's bank
+    form, one level down). The kernel wrappers count their launches; the op
+    adds nothing to the counts."""
     impl = impl or (lambda fn: fn)
     op = torch.library.custom_op(f"{NAMESPACE}::{name}", _fresh_outputs(impl(plain)), mutates_args=(),
                                  device_types="cpu", schema=schema)
     op.register_kernel("cuda", impl(cuda))
     op.register_fake(fake)
-    return KernelOp(op._opoverload, cuda, plain, lead, adapt)
+    kop = KernelOp(op._opoverload, cuda, plain, lead, adapt, vmap)
+    if vmap is not None:
+        op.register_vmap(lambda info, in_dims, *args: vmap(kop, in_dims, *args))
+    return kop
 
 
 def model_ids(names: tuple) -> dict:

@@ -17,6 +17,7 @@ function broadcasts over leading batch axes: ν is ``(..., 6)``, q
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -158,15 +159,26 @@ def simulate_effort(params: UWVParameters, state: PoseVelocityState, efforts, dt
 _XY_YAW = torch.tensor([0, 1, 5])
 
 
+@functools.lru_cache(maxsize=None)
+def _xy_yaw_spread(device: torch.device):
+    """On ``device``: each of the 6 axes' row in the (x, y, ψ) block (0 for
+    the axes outside it), and the (6, 6) mask of the block's entries."""
+    inside = torch.zeros(6, dtype=torch.bool).index_fill_(0, _XY_YAW, True)
+    row = torch.tensor([0, 1, 0, 0, 0, 2])
+    return row.to(device), (inside[:, None] & inside[None, :]).to(device)
+
+
 def extract_xy_yaw(mat6: torch.Tensor) -> torch.Tensor:
     """(..., 6, 6) → (..., 3, 3) surge/sway/yaw block."""
     return mat6[..., _XY_YAW[:, None], _XY_YAW[None, :]]
 
 
 def embed_xy_yaw(mat6: torch.Tensor, block3: torch.Tensor) -> torch.Tensor:
-    """Write (..., 3, 3) (x, y, ψ) blocks into copies of a 6×6 matrix — the
-    per-sigma-point parameter substitution of the effort measurement."""
+    """Put (..., 3, 3) (x, y, ψ) blocks into copies of a 6×6 matrix — the
+    per-sigma-point parameter substitution of the effort measurement. Built
+    by a select, not written in place, so a block batched by
+    ``torch.func.vmap`` goes into an unbatched matrix."""
+    row, mask = _xy_yaw_spread(block3.device)
+    spread = block3[..., row[:, None], row[None, :]].to(mat6.dtype)
     batch = torch.broadcast_shapes(mat6.shape[:-2], block3.shape[:-2])
-    out = mat6.expand(*batch, 6, 6).clone()
-    out[..., _XY_YAW[:, None], _XY_YAW[None, :]] = block3
-    return out
+    return torch.where(mask, spread, mat6.expand(*batch, 6, 6))

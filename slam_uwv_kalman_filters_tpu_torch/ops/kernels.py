@@ -14,7 +14,11 @@ triangular substitutions X = A⁻¹B (``_solve_spd_kernel``). On a CUDA tensor
 :func:`solve_spd_banked` that of ``csrc/solve_spd.cu``; on a CPU tensor they
 run the plain version. Each is also an op (``slam_uwv::sigma_deltas_lanes``,
 ``sigma_deltas``, ``solve_spd``, ``cholesky``; ``cuda_lib.kernel_op``), which
-they call under ``torch.export``.
+they call under ``torch.export`` and under ``torch.func.vmap``. Each op has a
+vmap rule, the counterpart of JAX's ``custom_vmap`` rules of
+``sigma_deltas_fast``, ``cholesky_fast`` and ``solve_spd_fast``: the vmapped
+axes fold into the kernel's bank axis, so a function written for one filter
+and vmapped over a bank makes one launch per call, not one per instance.
 
 The deltas are ukfom-ordered: row 0 zero, rows 2j+1 / 2j+2 the ±j-th column
 of L = D·chol(D⁻¹·A·D⁻¹), D = √max(diag A, tiny). The diagonal equilibration
@@ -152,18 +156,40 @@ def sigma_deltas_cuda(cov: torch.Tensor) -> torch.Tensor:
     return _factor_launch("sigma_deltas", cov, (0, 1, 2), out, (0, 1, 2))
 
 
+def _bank_first_rule(call, in_dims, cov):
+    """vmap rule of a bank-first one-operand op (K1, K12): (N, n, n) with a
+    vmap dim of size V → one call on (V·N, n, n), unfolded to (V, N, …)."""
+    (d,) = in_dims
+    if d is None:
+        return call(cov), None
+    cov = cov.movedim(d, 0)
+    out = call(cov.reshape(-1, *cov.shape[2:]))
+    return out.reshape(*cov.shape[:2], *out.shape[1:]), 0
+
+
+def _lanes_rule(call, in_dims, a_t):
+    """vmap rule of the lanes op: (n, n, N) with a vmap dim of size V → one
+    call on (n, n, V·N), unfolded to (2n+1, n, V, N)."""
+    (d,) = in_dims
+    if d is None:
+        return call(a_t), None
+    a_t = a_t.movedim(d, 2)
+    out = call(a_t.reshape(*a_t.shape[:2], -1))
+    return out.reshape(*out.shape[:2], *a_t.shape[2:]), 2
+
+
 # the kernels as ops (``cuda_lib.kernel_op``): the CUDA wrapper on the card, the
 # plain version on the CPU, each looked up when called
 _new = lambda t, *shape: t.new_empty(shape)
 _SIGMA_DELTAS_LANES = cuda_lib.kernel_op(
     "sigma_deltas_lanes", "(Tensor a_t) -> Tensor",
     lambda a_t: sigma_deltas_lanes_cuda(a_t), lambda a_t: sigma_deltas_lanes_plain(a_t),
-    lambda a_t: _new(a_t, 2 * a_t.shape[0] + 1, a_t.shape[0], a_t.shape[-1]),
+    lambda a_t: _new(a_t, 2 * a_t.shape[0] + 1, a_t.shape[0], a_t.shape[-1]), vmap=_lanes_rule,
 )
 _SIGMA_DELTAS = cuda_lib.kernel_op(
     "sigma_deltas", "(Tensor cov) -> Tensor",
     lambda cov: sigma_deltas_cuda(cov), lambda cov: sigma_deltas_plain(cov),
-    lambda cov: _new(cov, cov.shape[0], 2 * cov.shape[-1] + 1, cov.shape[-1]),
+    lambda cov: _new(cov, cov.shape[0], 2 * cov.shape[-1] + 1, cov.shape[-1]), vmap=_bank_first_rule,
 )
 
 
@@ -190,8 +216,10 @@ def sigma_deltas_banked(cov: torch.Tensor) -> torch.Tensor:
 def sigma_deltas_fast(cov: torch.Tensor) -> torch.Tensor:
     """ukfom sigma deltas of one (n, n) SPD matrix or of any (..., n, n)
     stack → (..., 2n+1, n): the leading axes flatten into one bank for
-    :func:`sigma_deltas_banked` (K1 on the card), which is what JAX's vmap
-    rule of ``sigma_deltas_fast`` does (the port has no vmap)."""
+    :func:`sigma_deltas_banked` (K1 on the card). Under ``torch.func.vmap``
+    the op's rule folds the vmapped axes into that bank too, so a vmapped
+    call on one matrix is one launch, as JAX's vmap rule of
+    ``sigma_deltas_fast`` makes it."""
     n = cov.shape[-1]
     if cov.ndim == 2:
         return sigma_deltas_banked(cov)
@@ -258,10 +286,24 @@ def solve_spd_cuda(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return _solve_spd_launch(spd, (0, 1, 2), rhs, (0, 1, 2), x, (0, 1, 2))
 
 
+def _solve_spd_rule(call, in_dims, spd, rhs):
+    """vmap rule of K8's op: each operand's vmap dim (size V) to the front,
+    an unbatched operand expanded to V (a view for a bank of one), then one
+    call on (V·N, n, n), (V·N, n, k), unfolded to (V, N, n, k)."""
+    size = spd.shape[in_dims[0]] if in_dims[0] is not None else rhs.shape[in_dims[1]]
+
+    def fold(t, d):
+        t = t[None].expand(size, *t.shape) if d is None else t.movedim(d, 0)
+        return t.reshape(-1, *t.shape[2:])
+
+    out = call(fold(spd, in_dims[0]), fold(rhs, in_dims[1]))
+    return out.reshape(size, -1, *out.shape[1:]), 0
+
+
 _SOLVE_SPD = cuda_lib.kernel_op(
     "solve_spd", "(Tensor spd, Tensor rhs) -> Tensor",
     lambda spd, rhs: solve_spd_cuda(spd, rhs), lambda spd, rhs: solve_spd_plain(spd, rhs),
-    lambda spd, rhs: _new(spd, spd.shape[0], spd.shape[-1], rhs.shape[-1]),
+    lambda spd, rhs: _new(spd, spd.shape[0], spd.shape[-1], rhs.shape[-1]), vmap=_solve_spd_rule,
 )
 
 
@@ -270,8 +312,8 @@ def solve_spd_banked(spd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     (n, k): n ≤ ``UNROLL_LIMIT`` by the unrolled substitution of
     ``linalg_small`` on any device; larger n by K8 for a CUDA tensor (any
     bank, float32 or float64) and by :func:`solve_spd_plain` for a CPU
-    tensor. It serves JAX's ``solve_spd_fast`` (one system) too: the port
-    has no ``vmap`` to batch it."""
+    tensor. Under ``torch.func.vmap`` the op's rule folds the vmapped axes
+    into K8's bank, so a vmapped call on one system is one launch."""
     single = spd.ndim == 2
     if single:
         spd, rhs = spd[None], rhs[None]
@@ -334,7 +376,7 @@ def cholesky_cuda(cov: torch.Tensor) -> torch.Tensor:
 _CHOLESKY = cuda_lib.kernel_op(
     "cholesky", "(Tensor cov) -> Tensor",
     lambda cov: cholesky_cuda(cov), lambda cov: cholesky_plain(cov),
-    lambda cov: _new(cov, *cov.shape),
+    lambda cov: _new(cov, *cov.shape), vmap=_bank_first_rule,
 )
 
 
@@ -358,8 +400,10 @@ def cholesky_banked(cov: torch.Tensor) -> torch.Tensor:
 
 def cholesky_fast(cov: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky of one (n, n) or of any (..., n, n) stack: the leading
-    axes flatten into one bank for :func:`cholesky_banked`, which is what
-    JAX's vmap rule of ``cholesky_fast`` does (the port has no vmap)."""
+    axes flatten into one bank for :func:`cholesky_banked`. Under
+    ``torch.func.vmap`` the op's rule folds the vmapped axes into that bank
+    too (one K12 launch on the card), as JAX's vmap rule of
+    ``cholesky_fast`` does."""
     n = cov.shape[-1]
     if cov.ndim == 2:
         return cholesky_banked(cov)

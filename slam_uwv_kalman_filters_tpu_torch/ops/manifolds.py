@@ -24,6 +24,7 @@ import dataclasses
 from typing import Any, Sequence
 
 import torch
+from torch._C import _functorch
 
 from ..utils.device import resolve_device
 
@@ -395,6 +396,15 @@ def _run_every_iteration(vals: torch.Tensor) -> bool:
     return vals.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
+def _unbatched(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for a tensor batched by ``torch.func.vmap`` the
+    tensor it wraps beneath every vmap level (all instances at once, which
+    a host read may then take)."""
+    while _functorch.is_batchedtensor(t):
+        t = _functorch.get_unwrapped(t)
+    return t
+
+
 def _iterative_mean(vals: torch.Tensor, boxplus, boxminus, *, max_iters: int, tol: float) -> torch.Tensor:
     """Iterative Karcher mean of manifold points ``vals`` (K, ..., d) over
     the leading axis through ``boxplus`` / ``boxminus``, started from
@@ -408,6 +418,12 @@ def _iterative_mean(vals: torch.Tensor, boxplus, boxminus, *, max_iters: int, to
     non-blocking, to pinned host memory behind an event that the host polls
     and never waits on, so the loop ends a few iterations after the card has
     converged and the host never waits for the device.
+
+    Under ``torch.func.vmap`` the flag is taken over the stored tensor
+    beneath every vmap level (:func:`_unbatched`), so the loop ends once
+    every instance of the whole vmapped bank has converged, as JAX's
+    ``while_loop`` does under ``vmap``, and a vmapped call runs as many
+    iterations as the bank form on the same stack.
 
     Where no host read is possible (under ``torch.export``, or while a CUDA
     graph is being captured, :func:`_run_every_iteration`) it runs all
@@ -427,7 +443,7 @@ def _iterative_mean(vals: torch.Tensor, boxplus, boxminus, *, max_iters: int, to
         norm = torch.where(active, torch.linalg.vector_norm(delta, dim=-1), norm)
         if run_all:
             continue
-        any_active = (norm > tol).any()
+        any_active = (_unbatched(norm) > tol).any()
         if not on_card:
             if not bool(any_active):
                 break

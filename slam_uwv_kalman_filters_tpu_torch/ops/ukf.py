@@ -35,6 +35,7 @@ __all__ = [
     "D2P95",
     "D2P99",
     "UpdateInfo",
+    "augment_covariance",
     "sigma_point_deltas",
     "sigma_points",
     "predict",
@@ -62,6 +63,17 @@ def _default_tol(dtype) -> float:
 
 def _symmetrize(m: torch.Tensor) -> torch.Tensor:
     return 0.5 * (m + m.transpose(-1, -2))
+
+
+def augment_covariance(cov: torch.Tensor, cov_aug: torch.Tensor) -> torch.Tensor:
+    """The covariance of a bank augmented with independent states: (B, n, n)
+    and (m, m) or (B, m, m) → (B, n+m, n+m), block diagonal with zero
+    cross-covariance. Built by concatenation, not by writes into a zero
+    tensor, so it takes blocks batched by ``torch.func.vmap``."""
+    nb, n, m = cov.shape[0], cov.shape[-1], cov_aug.shape[-1]
+    cov_aug = cov_aug.to(cov.dtype).expand(nb, m, m)
+    top = torch.cat([cov, cov.new_zeros(nb, n, m)], dim=-1)
+    return torch.cat([top, torch.cat([cov.new_zeros(nb, m, n), cov_aug], dim=-1)], dim=-2)
 
 
 def sigma_point_deltas(cov: torch.Tensor, *, jitter: float = 0.0) -> torch.Tensor:

@@ -1236,3 +1236,89 @@ def test_fma_probe_kernel_matches_plain_and_measures(device):
     assert roofline.measure_hbm(iters=4, elements=1 << 26) > 1e11
     with pytest.raises(TypeError):
         roofline.fma_probe_cuda(a.double(), b.double())
+
+
+# ---------------------------------------------------------------------------
+# the vmap rules of K1, K8 and K12: a vmapped call is one banked launch
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return {k: v.launches for k, v in puf.cuda_lib.KERNELS.items()}
+
+
+def _one_more(before, name):
+    return {k: v + (k == name) for k, v in before.items()}
+
+
+@pytest.mark.parametrize("layout", ["flat", "nested"])
+@pytest.mark.parametrize("name", ["sigma_deltas", "cholesky"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_factor_vmap_rule_is_one_banked_launch(device, dtype, name, layout):
+    """``torch.func.vmap`` of ``sigma_deltas_fast`` / ``cholesky_fast`` on
+    one 53×53 matrix an instance (a bank-first strided view, and a vmap of a
+    vmap over a (10, 13) grid): one launch of the kernel and none other, and
+    the bits of one banked call on the same stack."""
+    fast, banked = {"sigma_deltas": (kernels.sigma_deltas_fast, kernels.sigma_deltas_banked),
+                    "cholesky": (kernels.cholesky_fast, kernels.cholesky_banked)}[name]
+    cov = chol_operands(device, dtype, 53).permute(2, 1, 0)  # (NB, n, n), lower half valid
+    ref = banked(cov)
+    torch.cuda.synchronize()
+    before = _launches()
+    if layout == "flat":
+        out = torch.func.vmap(fast)(cov)
+    else:
+        out = torch.func.vmap(torch.func.vmap(fast))(cov.reshape(10, 13, 53, 53)).reshape(ref.shape)
+    torch.cuda.synchronize()
+    assert _launches() == _one_more(before, name)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("rhs", ["batched", "shared"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_spd_vmap_rule_is_one_banked_launch(device, dtype, rhs):
+    """``torch.func.vmap`` of ``solve_spd_fast`` on one 53×53 system with 53
+    right-hand sides an instance, the right-hand sides batched or shared
+    (expanded without a copy): one K8 launch, the bits of one banked
+    solve."""
+    a_t, b_t = spd_operands(device, dtype, 53, False, nb=NB)
+    spd, b = a_t.permute(2, 1, 0), b_t.permute(2, 0, 1)
+    if rhs == "shared":
+        b = b[0]
+        ref = kernels.solve_spd_banked(spd, b.expand(NB, 53, 53))
+        vmapped = torch.func.vmap(kernels.solve_spd_fast, in_dims=(0, None))
+    else:
+        ref = kernels.solve_spd_banked(spd, b)
+        vmapped = torch.func.vmap(kernels.solve_spd_fast)
+    torch.cuda.synchronize()
+    before = _launches()
+    out = vmapped(spd, b)
+    torch.cuda.synchronize()
+    assert _launches() == _one_more(before, "solve_spd")
+    assert torch.equal(out, ref)
+
+
+def test_lanes_vmap_rule_and_solo_predict_launch_once(device):
+    """The lanes K1 op folds a vmapped axis next to its lane axis (one
+    launch, the bits of the folded call); ``vmap_filter(pose_ukf.predict)``
+    over a bank is one K1 launch a call, and an op with no rule raises under
+    vmap."""
+    from slam_uwv_kalman_filters_tpu_torch.models import indirect_fused as ifu
+
+    a_t = chol_operands(device, torch.float32, 53, nb=2 * NB).reshape(53, 53, 2, NB).movedim(2, 0)
+    ref = kernels.sigma_deltas_lanes(a_t.movedim(0, 2).reshape(53, 53, 2 * NB))
+    torch.cuda.synchronize()
+    before = _launches()
+    out = torch.func.vmap(kernels.sigma_deltas_lanes)(a_t)
+    torch.cuda.synchronize()
+    assert _launches() == _one_more(before, "sigma_deltas")
+    assert torch.equal(out.movedim(0, 2).reshape(ref.shape), ref)
+    bs, params = _bank(device, torch.float32)
+    before = _launches()
+    pred = bank.vmap_filter(pukf.predict, data_axes=None)(bs, params, 0.01)
+    torch.cuda.synchronize()
+    assert _launches() == _one_more(before, "sigma_deltas")
+    assert bool(torch.isfinite(pred.cov).all())
+    with pytest.raises(NotImplementedError, match="slam_uwv::indirect_predict"):
+        torch.func.vmap(lambda c: ifu._indirect_predict_lanes(c, c[0], c[0, 0]))(
+            torch.zeros(2, 6, 6, 4, device=device))

@@ -25,7 +25,7 @@ def test_port_imports_without_jax():
         "metrics, tracing, validation\n"
         "from slam_uwv_kalman_filters_tpu_torch.examples import fleet_monte_carlo, full_stack_auv, icra18_mission, "
         "noise_tuning_sweep, online_estimator\n"
-        "from slam_uwv_kalman_filters_tpu_torch.tools import host_paths, roofline\n"
+        "from slam_uwv_kalman_filters_tpu_torch.tools import float32_drift, host_paths, roofline\n"
         "assert callable(roofline.measure_mxu) and callable(roofline.count_tick_flops)\n"
         "assert all(callable(getattr(aot, n)) for n in ('export_step', 'serialize', 'deserialize', 'save', 'load'))\n"
         "import chip_smoke\n"

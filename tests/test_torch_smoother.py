@@ -37,7 +37,7 @@ from slam_uwv_kalman_filters_tpu_torch.ops import manifolds as tmf
 from slam_uwv_kalman_filters_tpu_torch.ops import ukf as tukf
 from slam_uwv_kalman_filters_tpu_torch.parallel.bank import tree_map
 
-from torch_parity import assert_tree_close, np_tree, pt, random_spd
+from torch_parity import assert_tree_close, jx, np_tree, pt, random_spd
 
 SOLVE = dict(rtol=1e-9, atol=1e-12)
 TRAJ = dict(rtol=1e-6, atol=1e-8)
@@ -79,6 +79,10 @@ def test_solve_spd_float32_survives_condition():
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     jax_err = err(jkernels.solve_spd_banked(jnp.asarray(ill), jnp.asarray(rhs)))
     assert err(out) < 5e-2 and err(out) <= 2 * jax_err + 1e-6, (err(out), jax_err)
+
+
+def _one(tree, i):
+    return jax.tree.map(lambda a: a[i], tree)
 
 
 class Lin(NamedTuple):
@@ -193,22 +197,38 @@ def test_solo_trajectory_matches_the_bank_on_the_cpu_route(smoothed):
 
 
 def test_bank_with_a_dt_that_differs_across_trajectories_raises(smoothed):
-    """A bank predicts every trajectory with trajectory 0's interval, so a
-    schedule whose dt differs across the bank at one tick raises from both
-    passes; the shared-dt bank above still runs (and matches JAX there)."""
+    """A bank whose dt differs across its trajectories no longer raises (the
+    name is the test's record from when it did): both passes run the
+    one-trajectory forms under ``torch.func.vmap`` over the bank axis, each
+    trajectory with its own dt, and match JAX's
+    ``jax.vmap(run_trajectory_smoothed, in_axes=(0, None, 1))`` on three
+    trajectories over 40 ticks (one dt 0.05 s at three ticks, one jittered
+    by ±1% every tick); ``smooth_backward`` alone gives the same smoothed
+    pass. The shared-dt bank above keeps its route."""
     out, _, _ = smoothed
     states, params, inputs, _ = _survey()
-    short = jax.tree.map(lambda a: a[:6], inputs)
-    inp = _port_inputs(short, 2)
-    dt = inp.dt.clone()
-    dt[3, 1] = 0.05
-    ragged = inp._replace(dt=dt)
-    bank = jax.tree.map(lambda *a: np.stack(a), *[np_tree(s) for s in states])
-    with pytest.raises(ValueError, match="one dt per tick"):
-        tsm.run_trajectory_smoothed(pt(bank), pt(np_tree(params)), ragged)
-    with pytest.raises(ValueError, match="at tick 3"):
-        tsm.smooth_backward(tree_map(lambda a: a[:6], out.filtered_mu), out.filtered_cov[:6],
-                            pt(np_tree(params)), ragged)
-    mu, cov = tsm.smooth_backward(tree_map(lambda a: a[:6], out.filtered_mu), out.filtered_cov[:6],
-                                  pt(np_tree(params)), inp)
-    assert bool(torch.isfinite(cov).all()) and bool(torch.isfinite(mu.position).all())
+    n, nb = 40, 3
+    xy_valid = np.zeros(n, bool)
+    xy_valid[[1, n - 1]] = True
+    absent = dict.fromkeys(("acc", "acc_cov", "acc_valid", "pressure", "pressure_cov", "pressure_valid", "adcp",
+                            "adcp_cov", "adcp_cell_weighting", "adcp_valid", "efforts", "efforts_cov",
+                            "efforts_valid"))  # the survey's all-invalid slots, left out on both sides
+    short = jax.tree.map(lambda a: a[:n], inputs)._replace(xy_valid=jnp.asarray(xy_valid), **absent)
+    rng = np.random.default_rng(460)
+    dt = np.tile(np.asarray(short.dt)[:, None], (1, nb))
+    dt[[5, 17, 30], 1] = 0.05
+    dt[:, 2] *= 1.0 + rng.uniform(-0.01, 0.01, n)
+    banked = jax.tree.map(lambda a: np.broadcast_to(np.asarray(a)[:, None], (n, nb, *a.shape[1:])).copy(), short)
+    banked = banked._replace(dt=dt)
+    third = states[0]._replace(mu=states[0].mu._replace(velocity=states[0].mu.velocity + jnp.array([0.1, 0.0, 0.0])))
+    bank = jax.tree.map(lambda *a: np.stack(a), *[np_tree(s) for s in (*states, third)])
+    ref = jax.jit(jax.vmap(jsm.run_trajectory_smoothed, in_axes=(0, None, 1)))(jx(bank), jx(params), jx(banked))
+    mine = tsm.run_trajectory_smoothed(pt(bank), pt(np_tree(params)), pt(banked))
+    for i in range(nb):
+        assert_tree_close(type(mine)(*(tree_map(lambda a: a[:, i], f) for f in mine)), _one(np_tree(ref), i),
+                          **TRAJ, what=f"trajectory {i}")
+    ftr = torch.diagonal(mine.filtered_cov, dim1=-2, dim2=-1).sum(-1)
+    stre = torch.diagonal(mine.smoothed_cov, dim1=-2, dim2=-1).sum(-1)
+    assert bool((stre <= ftr + 1e-9).all())
+    mu, cov = tsm.smooth_backward(mine.filtered_mu, mine.filtered_cov, pt(np_tree(params)), pt(banked))
+    assert torch.equal(cov, mine.smoothed_cov) and torch.equal(mu.position, mine.smoothed_mu.position)
