@@ -26,7 +26,6 @@ reference's ``PoseUKF`` class over the solo functions.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +39,7 @@ from ..parallel.bank import select_where, tree_map
 from ..utils import delayed_states
 from ..utils.config import CameraConfiguration, PoseUKFConfig
 from ..utils.device import resolve_device
+from ..utils.memo import per_device
 from ..utils.validation import check_measurement
 from .indirect_pose_ukf import _as, _check_corners, pixel_cov_to_s2, pixel_to_s2
 
@@ -461,7 +461,7 @@ def _process_model(chi: PoseState, rotation_rate, params: PoseUKFParams, dt) -> 
     )
 
 
-@functools.lru_cache(maxsize=None)
+@per_device
 def _noise_masks(device: torch.device):
     """On ``device``: the (53, 53) masks of Q's orientation block and of the
     water currents' four diagonal entries (46–49)."""

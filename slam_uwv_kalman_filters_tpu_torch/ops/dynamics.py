@@ -17,12 +17,12 @@ function broadcasts over leading batch axes: ν is ``(..., 6)``, q
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.memo import per_device
 from .linalg_small import solve_spd
 from .manifolds import _cross, quat_rotate, quat_rotate_inv, so3_boxplus
 
@@ -159,7 +159,7 @@ def simulate_effort(params: UWVParameters, state: PoseVelocityState, efforts, dt
 _XY_YAW = torch.tensor([0, 1, 5])
 
 
-@functools.lru_cache(maxsize=None)
+@per_device
 def _xy_yaw_spread(device: torch.device):
     """On ``device``: each of the 6 axes' row in the (x, y, ψ) block (0 for
     the axes outside it), and the (6, 6) mask of the block's entries."""

@@ -1,4 +1,4 @@
-"""Kernel operands built from a parameter set, kept for the next call.
+"""Tensors built once and kept for later calls, but never from a trace.
 
 The whole-step kernels read a small block derived from the filter's
 parameters and dt (K2/K5's shared-mode predict operands, K6's 165-scalar
@@ -6,7 +6,11 @@ block). Building one costs tens of small launches, and a loop passes the
 same parameters and dt tick after tick. :func:`last_operands` keeps the
 last block a builder made and hands it back while its inputs are unchanged,
 so the caller passes only parameters and dt and nothing can fall out of
-step.
+step. :func:`per_device` keeps a builder's constant tensors (index maps,
+masks) for each device it is asked for.
+
+Neither keeps a tensor built under ``torch.export``: such a tensor is fake,
+and no later eager call may be handed it.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import functools
 
 import torch
 
-__all__ = ["last_operands"]
+__all__ = ["last_operands", "per_device"]
 
 
 def _versions(tree) -> tuple:
@@ -53,4 +57,25 @@ def last_operands(build):
         memo.update(params=params, key=key, out=out)
         return out
 
+    return wrapper
+
+
+def per_device(build):
+    """Wrap ``build(device)``, a builder of constant tensors, so that each
+    device's tensors are built once and handed back to every later call.
+    Under ``torch.export`` it may serve tensors an eager call built, but a
+    build made while tracing is returned and not kept. ``cache_clear()``
+    drops what is kept."""
+    kept: dict = {}
+
+    @functools.wraps(build)
+    def wrapper(device):
+        if device in kept:
+            return kept[device]
+        out = build(device)
+        if not torch.compiler.is_exporting():
+            kept[device] = out
+        return out
+
+    wrapper.cache_clear = kept.clear
     return wrapper

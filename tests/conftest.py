@@ -3,10 +3,16 @@
 Runs the suite on CPU with 8 virtual XLA devices (the standard JAX trick for
 testing multi-host sharding without a pod — SURVEY.md §4.4) and with x64
 enabled, since correctness oracles are double precision like the reference.
-Must run before the first ``import jax`` in any test module.
+Must run before the first ``import jax`` in any test module. Also pins torch
+to one thread, and gives each test a time limit.
 """
 
+import faulthandler
 import os
+import signal
+import threading
+
+import pytest
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")
@@ -35,3 +41,74 @@ jax.config.update(
     "jax_persistent_cache_min_compile_time_secs",
     1.0 if os.environ.get("JAX_TEST_CACHE_WRITES") == "1" else 1e9,
 )
+
+import torch
+
+# One intra-op thread for torch in each test process. The port's CPU paths
+# run many small ops (53×53 and smaller, banks of a few), which gain nothing
+# from a pool; and under xdist each of six workers would start a thread per
+# core, whose OpenMP threads spin while they wait. On 8 cores, with other
+# workers busy, a 4-bank lanes replay ran ~14× slower per tick on the default
+# pool than on one thread.
+torch.set_num_threads(1)
+
+
+# Per-test time limit. Each test's setup and call must end within its limit:
+# ``@pytest.mark.time_limit(seconds)``, or DEFAULT_TIME_LIMIT_S. At the limit
+# SIGALRM raises TimeLimitExceeded in the main thread (where pytest, and each
+# xdist worker, runs its tests), so the test fails and the run goes on. The
+# alarm repeats every second until the test has ended: a raise that lands
+# where the interpreter drops it (a destructor, a callback under C code that
+# clears errors) is followed by another. A test inside one long C call (an
+# XLA compile) takes the signal when the call returns; if it is still inside
+# BACKSTOP_S past its limit, faulthandler writes every thread's stack to the
+# log, so a call that never returns shows where it hangs. The backstop does
+# not end the process: under --dist loadfile, pytest-xdist 3.8 puts a test
+# that crashed its worker back into its file's queue and runs it again on the
+# replacement worker, so one stuck test would crash worker after worker.
+# There is no limit on the whole run.
+
+DEFAULT_TIME_LIMIT_S = 180.0
+BACKSTOP_S = 60.0
+_stderr_fd = None
+
+
+class TimeLimitExceeded(BaseException):
+    """A test ran past its time limit (a BaseException, so that a test's own
+    ``except Exception`` cannot swallow it)."""
+
+
+def pytest_configure(config):
+    global _stderr_fd
+    # the real stderr, kept before per-test capture redirects fd 2
+    _stderr_fd = os.dup(2)
+
+
+def _limited(item, phase):
+    if threading.current_thread() is not threading.main_thread():
+        return (yield)
+    marker = item.get_closest_marker("time_limit")
+    limit = float(marker.args[0]) if marker else DEFAULT_TIME_LIMIT_S
+
+    def expire(signum, frame):
+        raise TimeLimitExceeded(f"{item.nodeid}: {phase} ran past its time limit of {limit:g} s")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, limit, 1.0)
+    faulthandler.dump_traceback_later(limit + BACKSTOP_S, file=_stderr_fd)
+    try:
+        return (yield)
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        faulthandler.cancel_dump_traceback_later()
+        signal.signal(signal.SIGALRM, previous)
+
+
+@pytest.hookimpl(wrapper=True)
+def pytest_runtest_setup(item):
+    return (yield from _limited(item, "setup"))
+
+
+@pytest.hookimpl(wrapper=True)
+def pytest_runtest_call(item):
+    return (yield from _limited(item, "call"))

@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
 
@@ -94,6 +95,7 @@ def test_online_estimator_runs_off_tpu():
     assert rt > 0
 
 
+@pytest.mark.time_limit(210)
 def test_online_estimator_fused_step_mode():
     """--fused-step dispatches predict + the tick's sensor updates through
     the single-launch step_lanes kernel; the loop must converge identically

@@ -22,6 +22,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_uwv_kalman_filters_tpu.models import pose_driver as drv
 from slam_uwv_kalman_filters_tpu.models import pose_ukf as pukf
@@ -47,6 +48,8 @@ def test_icra18_mission_ate_bound_f32():
     assert ate < 0.10, f"f32 ATE {ate:.3f} m exceeds the 10 cm acceptance bound"
 
 
+@pytest.mark.slow
+@pytest.mark.time_limit(400)
 def test_kernel_path_mission_f32_interpret():
     """Trajectory-level run of the EXACT production kernels: a 4 s
     IMU+DVL+pressure mission through ``run_trajectory_bank`` with

@@ -27,6 +27,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_uwv_kalman_filters_tpu.models import monte_carlo as mc
 from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
@@ -71,6 +72,7 @@ def test_fleet_monte_carlo_ate_distribution():
     assert 0.3 < nis.mean() < 2.0, f"DVL NIS mean {nis.mean():.2f} out of band"
 
 
+@pytest.mark.time_limit(250)
 def test_fleet_mission_lanes_matches_bank_path():
     """The harness's two tick routes — the lanes-persistent kernel loop (the
     on-TPU artifact path, run here through the Pallas interpreter) and the

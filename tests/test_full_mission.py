@@ -8,6 +8,7 @@ a single compiled replay, then the bank tick against vmapped solo ticks."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_uwv_kalman_filters_tpu.models import pose_driver as drv
 from slam_uwv_kalman_filters_tpu.models import pose_ukf as pukf
@@ -363,6 +364,8 @@ def test_pose_step_bank_full_surface_matches_vmap():
     )
 
 
+@pytest.mark.slow
+@pytest.mark.time_limit(900)
 def test_run_trajectory_bank_lanes_matches_bank():
     """The lanes-persistent fleet replay (run_trajectory_bank_lanes: whole
     scan in kernel layout, every scheduled model in-kernel, marker ticks
@@ -504,6 +507,8 @@ def test_run_trajectory_bank_lanes_matches_bank():
     )
 
 
+@pytest.mark.slow
+@pytest.mark.time_limit(250)
 def test_run_trajectory_bank_lanes_banked_params():
     """Monte-Carlo parameter sweeps through the lanes-persistent fleet replay
     (VERDICT r3 item 2): a fully-banked parameter set — per-instance process

@@ -7,6 +7,7 @@ of a bank-layout round trip."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_uwv_kalman_filters_tpu.models import pose_fused as pf
 from slam_uwv_kalman_filters_tpu.models import pose_marker_fused as pmf
@@ -66,6 +67,7 @@ def _bank(n, dtype, seed=11):
     return bstate, params, rng
 
 
+@pytest.mark.slow
 def test_marker_lanes_matches_generic_bank():
     n = 3
     dtype = jnp.float64
@@ -126,6 +128,7 @@ def test_marker_lanes_matches_generic_bank():
     )
 
 
+@pytest.mark.time_limit(260)
 def test_marker_lanes_padded_bank_f32():
     """A non-lane-multiple f32 bank: pad lanes stay neutral and the unpadded
     instances match the generic path at f32 tolerances."""

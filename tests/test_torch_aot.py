@@ -7,6 +7,9 @@ and its kernels as ``torch.library`` ops, on the CPU, float64.
   the JAX package's own ``aot`` round trip of the same step to rtol 1e-10,
   and drives five chained calls to a finite state; the file round trip of
   the lanes prediction (K2).
+* An export made before the step's first eager call (predict, then body
+  efforts) leaves no fake tensor in the per-device masks that later eager
+  calls read.
 * A lanes tick (``set_rotation_rate_lanes`` + ``step_lanes``): its exported
   graph calls K5's op by name, it equals the eager tick bit for bit, and a
   call at another bank raises; an artifact whose header names the card
@@ -27,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from slam_uwv_kalman_filters_tpu.models import pose_ukf as jpukf
 from slam_uwv_kalman_filters_tpu.ops import dynamics as jdyn
@@ -115,6 +119,26 @@ def test_exported_step_round_trip():
     for _ in range(5):
         s, _ = call(s, z)
     assert bool(torch.isfinite(s.cov).all())
+
+
+def test_export_before_the_first_eager_call_leaves_no_fake_tensor():
+    """The per-device masks of Q (``pose_ukf._noise_masks``) and of the
+    effort model's (x, y, ψ) block (``dynamics._xy_yaw_spread``) first built
+    under export: the eager step after the export returns real tensors."""
+    pukf._noise_masks.cache_clear()
+    dyn._xy_yaw_spread.cache_clear()
+    state, params = _filter()
+    z = torch.tensor([10.0, 0.0, 0.0, 0.0, 0.0, 0.5], dtype=F64)
+    r = torch.eye(6, dtype=F64) * 1e-2
+
+    def step(s, zz):
+        s = pukf.predict(s, params, 0.01)
+        s, _ = pukf.update_body_efforts(s, params, zz, r)
+        return s
+
+    aot.export_step(step, state, z)
+    leaves = torch.utils._pytree.tree_leaves(step(state, z))
+    assert leaves and not any(isinstance(t, FakeTensor) for t in leaves)
 
 
 def test_exported_file_round_trip(tmp_path):
